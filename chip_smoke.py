@@ -1,0 +1,587 @@
+"""Chip smoke test of the PyTorch/H100 port: builds the CUDA kernels,
+holds each against its plain PyTorch version, times them, and serves
+full-width smollm-135m through the paged engine on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with one CUDA GPU and the
+CUDA toolkit (nvcc). It imports the port (``src/repro_torch``) only.
+Phases, each printed as it ends, stopping with a non-zero exit at the
+first that fails:
+
+1. device        the GPU's name and nvidia-smi's name and power limit;
+2. build         seconds to build every kernel from kernels/csrc/;
+3. kernel_check  each kernel against its plain version on the card:
+                 smoke and full-width shapes, f32 and bf16, softcap on
+                 and off, poisoned page-table tails, chunk 1/16/128 at
+                 q_offset > 0;
+4. kernel_times  each kernel at the engine's full-width shapes: its time,
+                 the plain version's, a library call's (SDPA over the
+                 gathered K/V, a yardstick the port never calls) and the
+                 bound (least time for the bytes and FLOPs it needs);
+5. engine        full-width smollm-135m, bf16, 24 requests through
+                 DriftScheduler("sjf") and the paged engine, with the
+                 kernels' launch counts checked against the iterations;
+6. engine_profile  a few iterations of the same engine under
+                 torch.profiler: device time per iteration and its share
+                 of the wall time;
+7. engine_check  one full-width prefill chunk and one decode step with
+                 the kernels against the same calls on the plain versions,
+                 within the plain path's own bf16-vs-float32 deviation.
+
+The line before the last is the kernel table as JSON, the last line
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+# Peak rates of one H100 SXM (NVIDIA data sheet, dense): the bound of a
+# kernel is the larger of bytes / memory rate and FLOPs / the bf16
+# tensor-core peak (the timed inputs are bf16).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+
+# Tolerances of kernel vs plain version, same inputs on the card. Both
+# accumulate in float32 and differ only in summation order: float32
+# outputs agree to a few ulps of values of order 1; bfloat16 outputs are
+# rounded from nearly equal float32 values, so at most about one bf16
+# ulp (2**-8 relative) apart.
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
+# Logits of the full-width model through 30 layers in bf16: the kernels
+# may move them by no more than bf16 itself does, i.e. the largest
+# difference between the plain path in bf16 and the same path in
+# float32 on the same inputs (measured in the run).
+TIMING_REPS = 60
+
+
+def phase(label: str, /, **fields) -> None:
+    print(json.dumps({"phase": label, **fields}, default=float), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+# ---------------------------------------------------------------------------
+# scenes
+# ---------------------------------------------------------------------------
+
+def page_scene(gen, B, Hk, D, P, pps, dtype, dev, extra=3):
+    """A random pool and non-overlapping page tables."""
+    n_pages = B * pps + extra
+    k = torch.randn(n_pages, P, Hk, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(n_pages, P, Hk, D, generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(n_pages, generator=gen, device=dev)[:B * pps]
+    return k, v, perm.reshape(B, pps).to(torch.int32)
+
+
+def poison(table, lens, P, n_pages):
+    """Garbage past each sequence's last page, far out of range."""
+    out = table.clone()
+    for b, n in enumerate(lens):
+        out[b, -(-int(n) // P):] = n_pages * 13 + b
+    return out
+
+
+def decode_inputs(gen, B, H, Hk, D, P, pps, lens, dtype, dev):
+    k, v, table = page_scene(gen, B, Hk, D, P, pps, dtype, dev)
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
+    kn = torch.randn(B, Hk, D, generator=gen, device=dev).to(dtype)
+    vn = torch.randn(B, Hk, D, generator=gen, device=dev).to(dtype)
+    return q, k, v, table, torch.tensor(lens, dtype=torch.int32, device=dev), kn, vn
+
+
+def prefill_inputs(gen, B, C, H, Hk, D, P, pps, offsets, dtype, dev):
+    k, v, table = page_scene(gen, B, Hk, D, P, pps, dtype, dev)
+    q = torch.randn(B, C, H, D, generator=gen, device=dev).to(dtype)
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    return q, k, v, table, off, off + C
+
+
+def max_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def within(got, want, dtype):
+    atol, rtol = TOL[dtype]
+    return bool(((got.float() - want.float()).abs()
+                 <= atol + rtol * want.float().abs()).all())
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def device_phase():
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi exited {smi.returncode}: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    phase("device", name=name, count=torch.cuda.device_count(),
+          torch=torch.__version__, cuda=torch.version.cuda)
+    print(smi_line, flush=True)
+    return name, smi_line
+
+
+def build_phase():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    names = _build.build_all()
+    phase("build", seconds=time.perf_counter() - t0, sources=names)
+
+
+def kernel_check_phase(dev):
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_cases, worst = 0, {}
+    shapes_decode = [  # B, H, Hk, D, P, pps
+        (3, 3, 1, 24, 8, 12),      # smoke smollm
+        (8, 9, 3, 64, 16, 32),     # full-width smollm, the engine's table
+        (2, 16, 2, 128, 16, 8),
+        (2, 8, 1, 256, 32, 4),     # > 48 KB of shared memory
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, Hk, D, P, pps in shapes_decode:
+            cap = P * pps - 1
+            lens = [0] + [(7 + 37 * b) % cap for b in range(1, B)]
+            for softcap in (None, 30.0):
+                for poisoned in (False, True):
+                    q, k, v, table, sl, kn, vn = decode_inputs(
+                        gen, B, H, Hk, D, P, pps, lens, dtype, dev)
+                    pt = poison(table, lens, P, k.shape[0]) if poisoned else table
+                    mp = min(pps, 2 ** math.ceil(math.log2(
+                        max(1, -(-max(lens) // P)))))
+                    got = ops.batched_paged_decode_attention(
+                        q, k, v, pt, sl, kn, vn, max_pages=mp,
+                        logit_softcap=softcap, impl="cuda")
+                    want = ops.batched_paged_decode_attention(
+                        q, k, v, table, sl, kn, vn, logit_softcap=softcap,
+                        impl="reference")
+                    torch.cuda.synchronize()
+                    err = max_err(got, want)
+                    key = ("decode", str(dtype).split(".")[-1])
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    n_cases += 1
+                    if not within(got, want, dtype):
+                        fail(f"decode kernel vs plain: {dtype} B{B} H{H} Hk{Hk} "
+                             f"D{D} P{P} softcap={softcap} poisoned={poisoned}: "
+                             f"max abs err {err} > tol {TOL[dtype]}")
+    shapes_prefill = [  # B, H, Hk, D, P, pps
+        (2, 3, 1, 24, 8, 24),      # smoke smollm
+        (2, 9, 3, 64, 16, 32),     # full-width smollm
+        (1, 8, 2, 256, 16, 16),    # > 48 KB of shared memory
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, Hk, D, P, pps in shapes_prefill:
+            for C in (1, 16, 128):
+                cap = P * pps - C
+                offsets = [min(cap, 64 + 13 * b) for b in range(B)]
+                for softcap in (None, 30.0):
+                    for poisoned in (False, True):
+                        q, k, v, table, off, kv = prefill_inputs(
+                            gen, B, C, H, Hk, D, P, pps, offsets, dtype, dev)
+                        pt = (poison(table, kv.tolist(), P, k.shape[0])
+                              if poisoned else table)
+                        got = ops.chunked_prefill_attention(
+                            q, k, v, pt, off, kv, logit_softcap=softcap,
+                            impl="cuda")
+                        want = ops.chunked_prefill_attention(
+                            q, k, v, table, off, kv, logit_softcap=softcap,
+                            impl="reference")
+                        torch.cuda.synchronize()
+                        err = max_err(got, want)
+                        key = ("prefill", str(dtype).split(".")[-1])
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        n_cases += 1
+                        if not within(got, want, dtype):
+                            fail(f"prefill kernel vs plain: {dtype} B{B} H{H} "
+                                 f"Hk{Hk} D{D} P{P} C{C} softcap={softcap} "
+                                 f"poisoned={poisoned}: max abs err {err} > "
+                                 f"tol {TOL[dtype]}")
+    phase("kernel_check", cases=n_cases,
+          max_abs_err={f"{k}/{d}": e for (k, d), e in worst.items()},
+          tol={str(d).split(".")[-1]: t for d, t in TOL.items()})
+
+
+def time_ms(fn, flush):
+    """Median over TIMING_REPS of one call between CUDA events, after a
+    warm-up, with L2 flushed before each call (the engine reaches each
+    layer's pages cold: the pool is larger than L2)."""
+    for _ in range(5):
+        fn()
+    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(TIMING_REPS):
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def decode_timing_scene(dev):
+    """The engine's decode call at full width: 8 slots, 9 q over 3 kv
+    heads, D 64, page 16, 32-page tables, bf16, lengths mid-run."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, H, Hk, D, P, pps = 8, 9, 3, 64, 16, 32
+    lens = [128, 135, 142, 150, 160, 171, 183, 191]
+    args = decode_inputs(gen, B, H, Hk, D, P, pps, lens, torch.bfloat16, dev)
+    max_pages = 16                    # next power of two over ceil(191/16)
+    return args, max_pages
+
+
+def prefill_timing_scene(dev):
+    """The engine's prefill call at full width: one 128-token chunk (the
+    chunk budget) at q_offset 0, bf16."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    return prefill_inputs(gen, 1, 128, 9, 3, 64, 16, 32, [0], torch.bfloat16,
+                          dev)
+
+
+def decode_bound(q, lens, P, Hk, D, max_pages):
+    e = q.element_size()
+    B, H, _ = q.shape
+    toks = [min(int(n), max_pages * P) for n in lens]
+    n_bytes = (2 * B * H * D * e                     # q in, out
+               + sum(toks) * Hk * D * 2 * e          # K and V read once
+               + B * Hk * D * 2 * e                  # k_new, v_new
+               + sum(-(-t // P) for t in toks) * 4 + B * 4)
+    flops = sum(4 * H * D * (t + 1) for t in toks)
+    return n_bytes, flops
+
+
+def prefill_bound(q, offsets, kv_lens, P, Hk, D):
+    e = q.element_size()
+    B, C, H, _ = q.shape
+    n_bytes = flops = 0
+    for off, kv in zip(offsets, kv_lens):
+        off, kv = int(off), int(kv)
+        n_bytes += 2 * C * H * D * e + kv * Hk * D * 2 * e + -(-kv // P) * 4 + 8
+        flops += sum(4 * H * D * (min(off + c, kv - 1) + 1)
+                     for c in range(C) if off + c < kv)
+    return n_bytes, flops
+
+
+def sdpa_decode_inputs(q, k, v, table, lens, kn, vn):
+    """Gathered contiguous K/V with the new token placed at seq_len, and
+    the length mask: what SDPA needs to compute the decode kernel's
+    function."""
+    B, H, D = q.shape
+    Hk = k.shape[2]
+    kg = k[table.long()].reshape(B, -1, Hk, D)
+    vg = v[table.long()].reshape(B, -1, Hk, D)
+    pad = kg.new_zeros(B, 1, Hk, D)
+    kg, vg = torch.cat([kg, pad], 1), torch.cat([vg, pad], 1)
+    rows = torch.arange(B, device=q.device)
+    kg[rows, lens.long()] = kn
+    vg[rows, lens.long()] = vn
+    S = kg.shape[1]
+    mask = torch.arange(S, device=q.device)[None] <= lens.long()[:, None]
+    return (q[:, :, None], kg.transpose(1, 2).contiguous(),
+            vg.transpose(1, 2).contiguous(), mask[:, None, None])
+
+
+def sdpa_prefill_inputs(q, k, v, table, off, kv):
+    B, C, H, D = q.shape
+    Hk = k.shape[2]
+    kg = k[table.long()].reshape(B, -1, Hk, D)
+    vg = v[table.long()].reshape(B, -1, Hk, D)
+    S = kg.shape[1]
+    q_pos = off.long()[:, None] + torch.arange(C, device=q.device)
+    k_pos = torch.arange(S, device=q.device)
+    mask = (k_pos[None, None] <= q_pos[:, :, None]) & \
+        (k_pos[None, None] < kv.long()[:, None, None])
+    return (q.transpose(1, 2).contiguous(), kg.transpose(1, 2).contiguous(),
+            vg.transpose(1, 2).contiguous(), mask[:, None])
+
+
+def kernel_times_phase(dev):
+    from repro_torch.kernels import ops
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+
+    (q, k, v, table, lens, kn, vn), mp = decode_timing_scene(dev)
+    args = (q, k, v, table, lens, kn, vn)
+    got = ops.batched_paged_decode_attention(*args, max_pages=mp, impl="cuda")
+    want = ops.batched_paged_decode_attention(*args, impl="reference")
+    err = max_err(got, want)
+    if not within(got, want, torch.bfloat16):
+        fail(f"decode kernel vs plain at engine shapes: max abs err {err}")
+    sq, sk, sv, smask = sdpa_decode_inputs(*args)
+    _, P, Hk, D = k.shape
+    n_bytes, flops = decode_bound(q, lens.tolist(), P, Hk, D, mp)
+    rows.append(dict(
+        name="batched_paged_decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/paged_attention.py:242",
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.batched_paged_decode_attention(
+            *args, max_pages=mp, impl="cuda"), flush),
+        plain_ms=time_ms(lambda: ops.batched_paged_decode_attention(
+            *args, impl="reference"), flush),
+        library_ms=time_ms(lambda: sdpa(sq, sk, sv, attn_mask=smask,
+                                        enable_gqa=True), flush),
+        bytes=n_bytes, flops=flops))
+
+    q, k, v, table, off, kv = prefill_timing_scene(dev)
+    args = (q, k, v, table, off, kv)
+    got = ops.chunked_prefill_attention(*args, impl="cuda")
+    want = ops.chunked_prefill_attention(*args, impl="reference")
+    err = max_err(got, want)
+    if not within(got, want, torch.bfloat16):
+        fail(f"prefill kernel vs plain at engine shapes: max abs err {err}")
+    sq, sk, sv, smask = sdpa_prefill_inputs(*args)
+    _, P, Hk, D = k.shape
+    n_bytes, flops = prefill_bound(q, off.tolist(), kv.tolist(), P, Hk, D)
+    rows.append(dict(
+        name="chunked_prefill_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
+        replaces="src/repro/kernels/chunked_prefill.py:112",
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.chunked_prefill_attention(*args, impl="cuda"),
+                   flush),
+        plain_ms=time_ms(lambda: ops.chunked_prefill_attention(
+            *args, impl="reference"), flush),
+        library_ms=time_ms(lambda: sdpa(sq, sk, sv, attn_mask=smask,
+                                        enable_gqa=True), flush),
+        bytes=n_bytes, flops=flops))
+
+    for r in rows:
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / BF16_FLOPS_PER_S * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        phase("kernel_times", **r)
+    torch.cuda.synchronize()
+    return rows
+
+
+def engine_phase(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import DriftScheduler
+    from repro_torch.kernels import chunked_prefill, paged_attention
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.workload.generator import GeneratorConfig, WorkloadGenerator
+
+    cfg = get_config("smollm-135m")
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sched = DriftScheduler("sjf")
+    eng = ServingEngine(cfg, params, sched, EngineConfig(
+        paged=True, n_slots=8, max_len=512, page_size=16,
+        prompt_buckets=(64, 128, 256), chunk_prefill_tokens=128,
+        prefix_cache=True, prefix_cache_pages=64), device=dev)
+    gen = WorkloadGenerator(GeneratorConfig(
+        total_requests=24, calibration_requests=24, max_tokens=64, seed=0,
+        shared_prefix_tokens=64))
+    reqs = [r for _, r in gen.plan(seed=0).calibration]
+    for i, r in enumerate(reqs):
+        sched.submit(r, 1e-6 * i)
+
+    paged_attention.launches = 0
+    chunked_prefill.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"batched_paged_decode_attention": paged_attention.launches,
+                "chunked_prefill_attention": chunked_prefill.launches}
+
+    tokens = sum(r.observed_output_tokens for r in sched.completed)
+    chunk_lens = {}
+    for _, n in eng.prefill_chunk_log:
+        chunk_lens[n] = chunk_lens.get(n, 0) + 1
+    phase("engine", arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+          init_s=init_s, wall_s=wall, iterations=eng.step_count,
+          decode_iterations=eng.n_decode_launches,
+          prefill_chunks=eng.n_prefill_launches,
+          completed=metrics.n_completed, tokens=tokens,
+          tokens_per_s=tokens / wall, ms_per_iteration=1e3 * wall / eng.step_count,
+          prefix=eng.prefix_cache_stats(), chunk_lengths=chunk_lens,
+          launches=launches)
+    if metrics.n_completed != len(reqs):
+        fail(f"engine completed {metrics.n_completed} of {len(reqs)}")
+    if launches["batched_paged_decode_attention"] != \
+            cfg.n_layers * eng.n_decode_launches:
+        fail(f"decode launches {launches} != {cfg.n_layers} x "
+             f"{eng.n_decode_launches} decode iterations")
+    if eng.n_prefill_launches <= 0 or launches["chunked_prefill_attention"] \
+            != cfg.n_layers * eng.n_prefill_launches:
+        fail(f"prefill launches {launches} != {cfg.n_layers} x "
+             f"{eng.n_prefill_launches} prefill chunks")
+    if eng.prefix_cache_stats()["hits"] <= 0:
+        fail("no prefix-cache hit in the engine run")
+    return cfg, params, eng, launches
+
+
+def engine_profile_phase(cfg, params, dev, steps=24):
+    """Where an engine iteration's time goes: ``steps`` iterations of a
+    fresh full-width engine under torch.profiler. Device time is the sum
+    of kernel and copy time on the GPU; its share of the profiled wall
+    time is how busy the host keeps the card."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.scheduler import DriftScheduler
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.workload.generator import GeneratorConfig, WorkloadGenerator
+    sched = DriftScheduler("sjf")
+    eng = ServingEngine(cfg, params, sched, EngineConfig(
+        paged=True, n_slots=8, max_len=512, page_size=16,
+        prompt_buckets=(64, 128, 256), chunk_prefill_tokens=128,
+        prefix_cache=True, prefix_cache_pages=64), device=dev)
+    gen = WorkloadGenerator(GeneratorConfig(
+        total_requests=8, calibration_requests=8, max_tokens=64, seed=1,
+        shared_prefix_tokens=64))
+    for i, (_, r) in enumerate(gen.plan(seed=1).calibration):
+        sched.submit(r, 1e-6 * i)
+    for i in range(4):                     # admit + prefill, then decode
+        eng.step(float(i))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            eng.step(4.0 + i)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device-side events only (kernels, copies): a CPU op's own device
+    # time is the same kernels again
+    per_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        per_kernel[e.key] = (dev_us, e.count)
+    device_ms = sum(us for us, _ in per_kernel.values()) / 1e3
+    launches = sum(n for _, n in per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    phase("engine_profile", iterations=steps,
+          profiled_wall_ms_per_iteration=wall_ms / steps,
+          device_ms_per_iteration=device_ms / steps,
+          device_busy_share=device_ms / wall_ms,
+          device_launches_per_iteration=launches / steps,
+          top_device_ms_per_iteration={
+              k[:60]: round(us / 1e3 / steps, 4) for k, (us, _) in top},
+          top_launches_per_iteration={
+              k[:60]: n / steps for k, (_, n) in top})
+    if device_ms <= 0:
+        fail("profiler saw no device time in the engine iterations")
+
+
+def engine_check_phase(cfg, params, eng, dev):
+    """One full-width prefill chunk and one decode step through the
+    kernels against the same calls through the plain versions, each
+    from a copy of the engine's pool after its run."""
+    from repro_torch.models import transformer
+    from repro_torch.models.steps import sample_logits
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pps = eng.alloc.pages_per_seq
+    n_pages = eng.pool.n_pages
+    tables = torch.randperm(n_pages - 1, generator=gen, device=dev)[
+        :8 * pps].reshape(8, pps).to(torch.int32)
+    chunk = torch.randint(1, cfg.vocab, (1, 128), generator=gen, device=dev)
+    q_offset = torch.tensor([64], dtype=torch.int32, device=dev)
+    step_tokens = torch.randint(1, cfg.vocab, (8,), generator=gen, device=dev)
+    lens = torch.tensor([192, 0, 77, 130, 255, 16, 200, 98],
+                        dtype=torch.int32, device=dev)
+    step_tables = tables.clone()
+    step_tables[1] = n_pages - 1                   # an inactive slot
+
+    def run(impl, dtype):
+        p = params if dtype is None else _cast(params, dtype)
+        c = cfg if dtype is None else cfg.replace(dtype="float32")
+        k, v = eng.pool.k, eng.pool.v
+        lp = transformer.prefill_chunk_paged(
+            c, p, {"k": k.to(dtype or k.dtype, copy=True),
+                   "v": v.to(dtype or v.dtype, copy=True)},
+            chunk, tables[:1], q_offset, impl=impl)
+        ld = transformer.decode_step_paged(
+            c, p, {"k": k.to(dtype or k.dtype, copy=True),
+                   "v": v.to(dtype or v.dtype, copy=True)},
+            step_tokens, step_tables, lens, max_pages=16, impl=impl)
+        return lp.float(), ld.float()
+
+    kern, plain = run("auto", None), run("reference", None)
+    plain32 = run("reference", torch.float32)
+    torch.cuda.synchronize()
+    tol = max(max_err(a, b) for a, b in zip(plain, plain32))
+    worst, ties = 0.0, 0
+    for got, want in zip(kern, plain):
+        worst = max(worst, max_err(got, want))
+        g_tok, w_tok = sample_logits(got, None), sample_logits(want, None)
+        for b in torch.nonzero(g_tok != w_tok).flatten().tolist():
+            # a flip is allowed only where the plain path itself has the
+            # two tokens within the tolerance (a near-tie)
+            gap = (want[b, w_tok[b]] - want[b, g_tok[b]]).item()
+            if gap > tol:
+                fail(f"greedy token differs in row {b}: kernels "
+                     f"{g_tok[b].item()} vs plain {w_tok[b].item()}, "
+                     f"plain-path gap {gap} > {tol}")
+            ties += 1
+    phase("engine_check", max_abs_logit_err=worst,
+          tol_bf16_vs_f32_plain=tol, logit_std=plain[1].std().item(),
+          greedy_rows=9, near_tie_flips=ties)
+    if worst > tol:
+        fail(f"logits kernels vs plain: max abs err {worst} > {tol}")
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    src = Path(__file__).resolve().parent / "src"
+    sys.path.insert(0, str(src))
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name, _ = device_phase()
+    build_phase()
+    kernel_check_phase(dev)
+    rows = kernel_times_phase(dev)
+    cfg, params, eng, launches = engine_phase(dev)
+    engine_profile_phase(cfg, params, dev)
+    engine_check_phase(cfg, params, eng, dev)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

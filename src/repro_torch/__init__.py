@@ -1,0 +1,10 @@
+"""PyTorch / CUDA port of DriftSched for one NVIDIA H100.
+
+Sits beside the JAX package ``repro`` and keeps its module layout, so
+each module here has a counterpart of the same path there. The port
+imports ``torch`` and ``numpy`` only; the host layers it needs
+(scheduler core, observability, workload, KV page bookkeeping) are its
+own copies. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; the two attention kernels of the paged serving path
+are CUDA C++ written for Hopper (``kernels/csrc``).
+"""

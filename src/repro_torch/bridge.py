@@ -1,0 +1,45 @@
+"""Bridge from the JAX package's parameter tree to the port's params.
+
+The tests run both packages on the same weights: they build params with
+the JAX ``transformer.init``, turn every leaf into a numpy array
+(``np.asarray``) and hand the tree here. This module imports no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .models.config import ModelConfig
+
+
+def tensor_from_numpy(a: np.ndarray, device: "str | torch.device" = "cuda",
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One numpy array as a torch tensor. bfloat16 arrives as
+    ``ml_dtypes`` bfloat16, which ``torch.from_numpy`` rejects, so it
+    goes through its 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Dict,
+                      device: "str | torch.device" = "cuda",
+                      dtype: Optional[torch.dtype] = None) -> Dict:
+    """The JAX parameter tree (nested dicts of numpy arrays, layers
+    stacked on a leading ``L`` axis) as the port's params, same keys and
+    layouts. ``dtype`` defaults to ``cfg.dtype``."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return tensor_from_numpy(node, device, dtype)
+
+    return convert(tree)

@@ -1,0 +1,31 @@
+"""Architecture registry: ``--arch <id>`` resolution for the port's
+launchers. Lists only the archs the port serves so far; the rest of the
+JAX package's catalog joins as their model families are ported."""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from ..models.config import ModelConfig
+
+# arch id -> module name (one module per supported architecture)
+_MODULES: Dict[str, str] = {
+    "smollm-135m": "smollm_135m",
+}
+
+ARCHS: List[str] = list(_MODULES)
+
+
+def _load(name: str):
+    if name not in _MODULES:
+        raise ValueError(f"unknown arch {name!r}; available: {ARCHS}")
+    return importlib.import_module(f".{_MODULES[name]}", __package__)
+
+
+def get_config(name: str) -> ModelConfig:
+    return _load(name).CONFIG
+
+
+def smoke_config(name: str) -> ModelConfig:
+    return _load(name).SMOKE

@@ -1,0 +1,125 @@
+"""Build the CUDA sources under ``csrc/`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C entry point and compiles on its
+own into ``<build dir>/<name>-<hash>.so``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o <name>-<hash>.so csrc/<name>.cu
+
+The hash covers the source and the flags, so an unchanged source is not
+rebuilt. The build directory is ``kernels/.build`` beside this file
+(listed in ``.gitignore``). No source includes PyTorch's headers, so a
+build takes seconds; :func:`build_all` starts one ``nvcc`` per source,
+all at once. Nothing here runs at import time: the first wrapper call
+on a CUDA tensor builds and loads its library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / ".build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every entry point: (name, argtypes)
+SIGNATURES: Dict[str, tuple] = {
+    "paged_decode": ("batched_paged_decode_launch",
+                     [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P]),
+    "chunked_prefill": ("chunked_prefill_launch",
+                        [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P]),
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: building the CUDA kernels needs the "
+                       "CUDA toolkit (on PATH or under CUDA_HOME)")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``csrc/<name>.cu`` unless its library is current.
+    Builds into a temporary name and renames, so a concurrent build
+    never loads a half-written library. Returns (process, tmp, out) or
+    None when the library is current."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> List[str]:
+    """Build every source in ``SIGNATURES`` in parallel (one nvcc per
+    source). Returns the names built or found current."""
+    names = list(SIGNATURES)
+    procs = {n: _start(n) for n in names}
+    try:
+        for n in names:
+            _finish(n, procs[n])
+    finally:
+        for started in procs.values():
+            if started is not None and started[0].poll() is None:
+                started[0].kill()
+                started[0].wait()
+    return names
+
+
+def load(name: str):
+    """The C entry point of ``csrc/<name>.cu``, built on first use, with
+    its ``argtypes`` set (``c_void_p`` for pointers and the stream) and
+    ``restype`` ``c_int`` (the ``cudaGetLastError()`` after launch)."""
+    if name not in _loaded:
+        _finish(name, _start(name))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _loaded[name] = lib
+    symbol, argtypes = SIGNATURES[name]
+    fn = getattr(_loaded[name], symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

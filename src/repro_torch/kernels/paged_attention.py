@@ -1,0 +1,106 @@
+"""Batched paged decode attention: one engine iteration's whole decode
+set in a single kernel launch.
+
+Port of the JAX package's ``kernels/paged_attention.py::
+batched_paged_decode_attention``. Each sequence's one new token attends
+the shared page pool through its page table, with the token's own K/V
+(``k_new``/``v_new``, not yet in the pool) folded in as a trailing
+virtual token; so the kernel never reads a page that the same-step
+scatter writes, and the caller scatters after the call. ``max_pages``
+bounds the page loop to the deepest live sequence; it is a hint that
+never changes results when it covers every live sequence, as the
+engine's does.
+
+On a CUDA tensor the wrapper launches ``csrc/paged_decode.cu`` or
+raises; on a CPU tensor it runs the plain version
+(``ref.batched_paged_decode_attention_ref``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build, ref
+
+#: kernel launches on CUDA tensors (never counts the plain version)
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_operands(q: torch.Tensor, k_pages: torch.Tensor,
+                   v_pages: torch.Tensor, *others: torch.Tensor) -> None:
+    """Devices, shapes and types the CUDA kernels take; raises on
+    anything else."""
+    D = q.shape[-1]
+    for t in (k_pages, v_pages) + others:
+        if t.device != q.device:
+            raise ValueError(f"operand on {t.device}, q on {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"pool dtype {k_pages.dtype}/{v_pages.dtype} "
+                        f"differs from q dtype {q.dtype}")
+    if D % 8 or D > 256:
+        raise ValueError(f"head_dim must be a multiple of 8 and <= 256, got {D}")
+    if k_pages.shape != v_pages.shape or k_pages.shape[-1] != D:
+        raise ValueError(f"pool shapes {tuple(k_pages.shape)}, "
+                         f"{tuple(v_pages.shape)} do not match head_dim {D}")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("page pools must be contiguous")
+
+
+def batched_paged_decode_attention(
+    q: torch.Tensor,            # [B, H, D]
+    k_pages: torch.Tensor,      # [n_pages, page_size, Hk, D]
+    v_pages: torch.Tensor,      # [n_pages, page_size, Hk, D]
+    page_table: torch.Tensor,   # [B, pages_per_seq] int32
+    seq_lens: torch.Tensor,     # [B] int32 tokens resident BEFORE this step
+    k_new: torch.Tensor,        # [B, Hk, D] this iteration's key (not in pool)
+    v_new: torch.Tensor,        # [B, Hk, D]
+    *,
+    max_pages: Optional[int] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention of ``seq_lens + 1`` tokens per sequence; out [B, H, D]
+    in q's dtype, float32 accumulation."""
+    B, H, D = q.shape
+    n_pages, page_size, Hk, _ = k_pages.shape
+    pages_per_seq = page_table.shape[1]
+    n_page_steps = pages_per_seq if max_pages is None else max_pages
+    if not 1 <= n_page_steps <= pages_per_seq:
+        raise ValueError(f"max_pages {max_pages} outside [1, {pages_per_seq}]")
+    if H % Hk:
+        raise ValueError(f"{H} query heads do not group over {Hk} kv heads")
+    if q.device.type == "cpu":
+        return ref.batched_paged_decode_attention_ref(
+            q, k_pages, v_pages, page_table, seq_lens, k_new, v_new,
+            logit_softcap=logit_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    check_operands(q, k_pages, v_pages, page_table, seq_lens, k_new, v_new)
+    if (k_new.shape != (B, Hk, D) or v_new.shape != (B, Hk, D)
+            or page_table.shape[0] != B or seq_lens.shape != (B,)):
+        raise ValueError("k_new/v_new must be [B, Hk, D], page_table [B, P], "
+                         "seq_lens [B]")
+    q = q.contiguous()
+    k_new = k_new.to(q.dtype).contiguous()
+    v_new = v_new.to(q.dtype).contiguous()
+    page_table = page_table.to(torch.int32).contiguous()
+    seq_lens = seq_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    fn = _build.load("paged_decode")
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             page_table.data_ptr(), seq_lens.data_ptr(), k_new.data_ptr(),
+             v_new.data_ptr(), out.data_ptr(), B, H, Hk, D, page_size,
+             pages_per_seq, n_page_steps, D ** -0.5,
+             0.0 if logit_softcap is None else float(logit_softcap),
+             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "batched_paged_decode_attention")
+    global launches
+    launches += 1
+    return out
