@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/H100 port: builds the CUDA kernels,
 holds each against its plain PyTorch version, times them, and serves
-full-width smollm-135m through the paged engine on one GPU.
+full-width smollm-135m through the paged and the slot-ring engines on
+one GPU.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,10 @@ first that fails:
 3. kernel_check  each kernel against its plain version on the card:
                  smoke and full-width shapes, f32 and bf16, softcap on
                  and off, poisoned page-table tails, chunk 1/16/128 at
-                 q_offset > 0;
+                 q_offset > 0; flash attention at the engine's prefill
+                 buckets, full-width h2o-danube (D 80, window, prefix),
+                 D 256 and Lq 1/16 against Lk 200; per-sequence paged
+                 decode on the batched kernel's shapes;
 4. kernel_times  each kernel at the engine's full-width shapes: its time,
                  the plain version's, a library call's (SDPA over the
                  gathered K/V, a yardstick the port never calls) and the
@@ -27,7 +31,18 @@ first that fails:
                  of the wall time;
 7. engine_check  one full-width prefill chunk and one decode step with
                  the kernels against the same calls on the plain versions,
-                 within the plain path's own bf16-vs-float32 deviation.
+                 within the plain path's own bf16-vs-float32 deviation;
+8. engine_slot   full-width smollm-135m, bf16, 24 requests through
+                 DriftScheduler("sjf") and the slot-ring engine
+                 (paged=False), flash-attention launches checked against
+                 the prefills and no paged kernel launched;
+9. engine_slot_profile  the slot-ring engine under torch.profiler;
+10. engine_slot_check  one full-width 256-token prefill (flash kernel)
+                 and one decode step from its cache, against the plain
+                 path, within its bf16-vs-float32 deviation.
+
+Each engine phase sets every kernel's launch count to 0 just before it
+serves and reads the counts just after.
 
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -107,6 +122,13 @@ def prefill_inputs(gen, B, C, H, Hk, D, P, pps, offsets, dtype, dev):
     q = torch.randn(B, C, H, D, generator=gen, device=dev).to(dtype)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     return q, k, v, table, off, off + C
+
+
+def flash_inputs(gen, B, Lq, Lk, H, Hk, D, dtype, dev):
+    q = torch.randn(B, Lq, H, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Lk, Hk, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Lk, Hk, D, generator=gen, device=dev).to(dtype)
+    return q, k, v
 
 
 def max_err(got, want):
@@ -212,6 +234,57 @@ def kernel_check_phase(dev):
                                  f"Hk{Hk} D{D} P{P} C{C} softcap={softcap} "
                                  f"poisoned={poisoned}: max abs err {err} > "
                                  f"tol {TOL[dtype]}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, Hk, D, P, pps in shapes_decode:
+            lens = [0] + [(9 + 37 * b) % (P * pps) + 1 for b in range(1, B)]
+            for softcap in (None, 30.0):
+                for poisoned in (False, True):
+                    q, k, v, table, sl, _, _ = decode_inputs(
+                        gen, B, H, Hk, D, P, pps, lens, dtype, dev)
+                    pt = poison(table, lens, P, k.shape[0]) if poisoned else table
+                    got = ops.paged_decode_attention(
+                        q, k, v, pt, sl, logit_softcap=softcap, impl="cuda")
+                    want = ops.paged_decode_attention(
+                        q, k, v, table, sl, logit_softcap=softcap,
+                        impl="reference")
+                    torch.cuda.synchronize()
+                    err = max_err(got, want)
+                    key = ("paged_decode", str(dtype).split(".")[-1])
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    n_cases += 1
+                    if not within(got, want, dtype) or got[0].any():
+                        fail(f"per-sequence decode kernel vs plain: {dtype} B{B} "
+                             f"H{H} Hk{Hk} D{D} P{P} softcap={softcap} "
+                             f"poisoned={poisoned}: max abs err {err} > tol "
+                             f"{TOL[dtype]} (or a seq_len-0 row not zero)")
+    shapes_flash = [  # B, Lq, Lk, H, Hk, D, mask keywords
+        (2, 40, 40, 3, 1, 24, {}),                        # smoke smollm
+        (2, 40, 40, 4, 2, 16, dict(window=16)),           # smoke h2o-danube
+        (1, 64, 64, 9, 3, 64, {}),                        # the engine's buckets
+        (1, 128, 128, 9, 3, 64, {}),
+        (1, 256, 256, 9, 3, 64, {}),
+        (1, 256, 256, 32, 8, 80, dict(window=64, prefix_len=16)),  # h2o-danube
+        (1, 64, 64, 8, 2, 256, {}),                       # > 48 KB of smem
+        (1, 1, 200, 9, 3, 64, {}),                        # Lq < Lk, ragged
+        (1, 16, 200, 9, 3, 64, dict(window=64)),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Lq, Lk, H, Hk, D, kw in shapes_flash:
+            for softcap in (None, 30.0):
+                q, k, v = flash_inputs(gen, B, Lq, Lk, H, Hk, D, dtype, dev)
+                got = ops.attention(q, k, v, logit_softcap=softcap,
+                                    impl="cuda", **kw)
+                want = ops.attention(q, k, v, logit_softcap=softcap,
+                                     impl="reference", **kw)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                key = ("flash", str(dtype).split(".")[-1])
+                worst[key] = max(worst.get(key, 0.0), err)
+                n_cases += 1
+                if not within(got, want, dtype):
+                    fail(f"flash kernel vs plain: {dtype} B{B} Lq{Lq} Lk{Lk} "
+                         f"H{H} Hk{Hk} D{D} {kw} softcap={softcap}: max abs "
+                         f"err {err} > tol {TOL[dtype]}")
     phase("kernel_check", cases=n_cases,
           max_abs_err={f"{k}/{d}": e for (k, d), e in worst.items()},
           tol={str(d).split(".")[-1]: t for d, t in TOL.items()})
@@ -277,6 +350,52 @@ def prefill_bound(q, offsets, kv_lens, P, Hk, D):
         flops += sum(4 * H * D * (min(off + c, kv - 1) + 1)
                      for c in range(C) if off + c < kv)
     return n_bytes, flops
+
+
+def paged_decode_bound(q, lens, P, Hk, D):
+    e = q.element_size()
+    B, H, _ = q.shape
+    n_bytes = (2 * B * H * D * e + sum(lens) * Hk * D * 2 * e
+               + sum(-(-n // P) for n in lens) * 4 + B * 4)
+    return n_bytes, sum(4 * H * D * n for n in lens)
+
+
+def flash_bound(q, k, causal=True, window=None, prefix_len=0):
+    """Bytes of q, k, v and out once each, and 4 * D FLOPs per visible
+    (query head, key) pair under this call's mask."""
+    e = q.element_size()
+    B, Lq, H, D = q.shape
+    Lk, Hk = k.shape[1], k.shape[2]
+    q_pos = torch.arange(Lq)[:, None] + (Lk - Lq)
+    k_pos = torch.arange(Lk)[None, :]
+    mask = torch.ones(Lq, Lk, dtype=torch.bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= q_pos - k_pos < window
+    if prefix_len:
+        mask |= k_pos < prefix_len
+    n_bytes = 2 * B * Lq * H * D * e + 2 * B * Lk * Hk * D * e
+    return n_bytes, 4 * B * H * D * int(mask.sum())
+
+
+def sdpa_paged_inputs(q, k, v, table, lens):
+    """Gathered contiguous K/V and the length mask, for the per-sequence
+    decode kernel's function."""
+    B, H, D = q.shape
+    Hk = k.shape[2]
+    kg = k[table.long()].reshape(B, -1, Hk, D)
+    vg = v[table.long()].reshape(B, -1, Hk, D)
+    mask = torch.arange(kg.shape[1], device=q.device)[None] < lens.long()[:, None]
+    return (q[:, :, None], kg.transpose(1, 2).contiguous(),
+            vg.transpose(1, 2).contiguous(), mask[:, None, None])
+
+
+def flash_timing_scene(dev, L):
+    """The slot-ring engine's prefill attention at full width: one
+    ``L``-token bucket, 9 q over 3 kv heads, D 64, causal, bf16."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    return flash_inputs(gen, 1, L, L, 9, 3, 64, torch.bfloat16, dev)
 
 
 def sdpa_decode_inputs(q, k, v, table, lens, kn, vn):
@@ -364,7 +483,62 @@ def kernel_times_phase(dev):
                                         enable_gqa=True), flush),
         bytes=n_bytes, flops=flops))
 
-    for r in rows:
+    (q, k, v, table, lens, _, _), _ = decode_timing_scene(dev)
+    args = (q, k, v, table, lens)
+    got = ops.paged_decode_attention(*args, impl="cuda")
+    want = ops.paged_decode_attention(*args, impl="reference")
+    err = max_err(got, want)
+    if not within(got, want, torch.bfloat16):
+        fail(f"per-sequence decode kernel vs plain at engine shapes: "
+             f"max abs err {err}")
+    sq, sk, sv, smask = sdpa_paged_inputs(*args)
+    _, P, Hk, D = k.shape
+    n_bytes, flops = paged_decode_bound(q, lens.tolist(), P, Hk, D)
+    rows.append(dict(
+        name="paged_decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/paged_attention.py:108",
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.paged_decode_attention(*args, impl="cuda"),
+                   flush),
+        plain_ms=time_ms(lambda: ops.paged_decode_attention(
+            *args, impl="reference"), flush),
+        library_ms=time_ms(lambda: sdpa(sq, sk, sv, attn_mask=smask,
+                                        enable_gqa=True), flush),
+        bytes=n_bytes, flops=flops))
+
+    # the slot-ring engine run prefills 64-token buckets only (its
+    # prompts are all <= 64 tokens): that is the main path's shape and
+    # the table's row; the largest bucket, 256, is timed beside it
+    extra = []
+    for L in (64, 256):
+        q, k, v = flash_timing_scene(dev, L)
+        got = ops.attention(q, k, v, impl="cuda")
+        want = ops.attention(q, k, v, impl="reference")
+        err = max_err(got, want)
+        if not within(got, want, torch.bfloat16):
+            fail(f"flash kernel vs plain at engine shapes (L {L}): max abs "
+                 f"err {err}")
+        sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        n_bytes, flops = flash_bound(q, k)
+        (rows if L == 64 else extra).append(dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:124",
+            max_abs_err=err, tokens=L,
+            ms=time_ms(lambda: ops.attention(q, k, v, impl="cuda"), flush),
+            plain_ms=time_ms(lambda: ops.attention(q, k, v, impl="reference"),
+                             flush),
+            library_ms=time_ms(lambda: sdpa(sq, sk, sv, is_causal=True,
+                                            enable_gqa=True), flush),
+            bytes=n_bytes, flops=flops))
+
+    path = {"batched_paged_decode_attention": "paged engine (decode)",
+            "chunked_prefill_attention": "paged engine (prefill chunks)",
+            "paged_decode_attention": "none (no engine path)",
+            "flash_attention": "slot-ring engine (prefill)"}
+    for r in rows + extra:
+        r["path"] = path[r["name"]]
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / BF16_FLOPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
@@ -374,40 +548,77 @@ def kernel_times_phase(dev):
     return rows
 
 
-def engine_phase(dev):
-    from repro_torch.configs import get_config
+# the engines' configurations, both at full width: the paged cache (with
+# chunked prefill and the prefix cache) and the slot-ring cache
+# (paged=False, the default of both engines)
+PAGED_ENGINE = dict(paged=True, n_slots=8, max_len=512, page_size=16,
+                    prompt_buckets=(64, 128, 256), chunk_prefill_tokens=128,
+                    prefix_cache=True, prefix_cache_pages=64)
+SLOT_ENGINE = dict(paged=False, n_slots=8, max_len=512,
+                   prompt_buckets=(64, 128, 256), chunk_prefill_tokens=128)
+
+
+def kernel_counters():
+    """Each kernel's name -> (module, attribute) of its launch count."""
+    from repro_torch.kernels import chunked_prefill, flash_attention, paged_attention
+    return {
+        "batched_paged_decode_attention": (paged_attention, "launches"),
+        "chunked_prefill_attention": (chunked_prefill, "launches"),
+        "paged_decode_attention": (paged_attention, "paged_decode_launches"),
+        "flash_attention": (flash_attention, "launches"),
+    }
+
+
+def reset_launches() -> None:
+    for mod, attr in kernel_counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in kernel_counters().items()}
+
+
+def serve(cfg, params, dev, ecfg, n, seed, **gen_kw):
+    """A fresh engine with ``n`` requests of the port's generator queued
+    under DriftScheduler("sjf")."""
     from repro_torch.core.scheduler import DriftScheduler
-    from repro_torch.kernels import chunked_prefill, paged_attention
-    from repro_torch.models import transformer
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.workload.generator import GeneratorConfig, WorkloadGenerator
-
-    cfg = get_config("smollm-135m")
-    t0 = time.perf_counter()
-    params = transformer.init(cfg, torch.Generator().manual_seed(0), device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     sched = DriftScheduler("sjf")
-    eng = ServingEngine(cfg, params, sched, EngineConfig(
-        paged=True, n_slots=8, max_len=512, page_size=16,
-        prompt_buckets=(64, 128, 256), chunk_prefill_tokens=128,
-        prefix_cache=True, prefix_cache_pages=64), device=dev)
+    eng = ServingEngine(cfg, params, sched, EngineConfig(**ecfg), device=dev)
     gen = WorkloadGenerator(GeneratorConfig(
-        total_requests=24, calibration_requests=24, max_tokens=64, seed=0,
-        shared_prefix_tokens=64))
-    reqs = [r for _, r in gen.plan(seed=0).calibration]
+        total_requests=n, calibration_requests=n, max_tokens=64, seed=seed,
+        **gen_kw))
+    reqs = [r for _, r in gen.plan(seed=seed).calibration]
     for i, r in enumerate(reqs):
         sched.submit(r, 1e-6 * i)
+    return eng, sched, reqs
 
-    paged_attention.launches = 0
-    chunked_prefill.launches = 0
+
+def drain(eng):
+    """Serve everything queued, with every launch count set to 0 just
+    before and read just after: (metrics, wall seconds, launches)."""
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics = eng.run_until_drained()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"batched_paged_decode_attention": paged_attention.launches,
-                "chunked_prefill_attention": chunked_prefill.launches}
+    return metrics, time.perf_counter() - t0, read_launches()
+
+
+def engine_phase(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_api
+
+    cfg = get_config("smollm-135m")
+    t0 = time.perf_counter()
+    params = get_api(cfg).init(cfg, torch.Generator().manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng, sched, reqs = serve(cfg, params, dev, PAGED_ENGINE, 24, 0,
+                             shared_prefix_tokens=64)
+    metrics, wall, launches = drain(eng)
 
     tokens = sum(r.observed_output_tokens for r in sched.completed)
     chunk_lens = {}
@@ -431,30 +642,53 @@ def engine_phase(dev):
             != cfg.n_layers * eng.n_prefill_launches:
         fail(f"prefill launches {launches} != {cfg.n_layers} x "
              f"{eng.n_prefill_launches} prefill chunks")
+    if launches["paged_decode_attention"] or launches["flash_attention"]:
+        fail(f"the paged engine launched a slot-ring kernel: {launches}")
     if eng.prefix_cache_stats()["hits"] <= 0:
         fail("no prefix-cache hit in the engine run")
     return cfg, params, eng, launches
 
 
-def engine_profile_phase(cfg, params, dev, steps=24):
+def engine_slot_phase(cfg, params, dev):
+    """The slot-ring engine (paged=False) on the same model: each
+    admission prefills its bucket in one shot (one flash-attention
+    launch per layer), then decodes from the contiguous cache."""
+    eng, sched, reqs = serve(cfg, params, dev, SLOT_ENGINE, 24, 0)
+    metrics, wall, launches = drain(eng)
+    tokens = sum(r.observed_output_tokens for r in sched.completed)
+    # a request's first token comes from its one single-shot prefill
+    prefills = sum(r.prefill_end is not None for r in sched.completed)
+    buckets = {}
+    for r in sched.completed:
+        b = next((b for b in SLOT_ENGINE["prompt_buckets"]
+                  if max(r.prompt_tokens, 1) <= b),
+                 SLOT_ENGINE["prompt_buckets"][-1])
+        buckets[b] = buckets.get(b, 0) + 1
+    phase("engine_slot", arch=cfg.name, n_layers=cfg.n_layers,
+          dtype=cfg.dtype, wall_s=wall, iterations=eng.step_count,
+          decode_iterations=eng.n_decode_launches, prefills=prefills,
+          prefill_buckets=buckets, completed=metrics.n_completed,
+          tokens=tokens, tokens_per_s=tokens / wall,
+          ms_per_iteration=1e3 * wall / eng.step_count, launches=launches)
+    if metrics.n_completed != len(reqs) or prefills != len(reqs):
+        fail(f"slot-ring engine completed {metrics.n_completed} of "
+             f"{len(reqs)} ({prefills} prefills)")
+    if launches["flash_attention"] != cfg.n_layers * prefills:
+        fail(f"flash launches {launches} != {cfg.n_layers} x {prefills} "
+             "prefills")
+    paged = {k: n for k, n in launches.items() if k != "flash_attention"}
+    if any(paged.values()):
+        fail(f"the slot-ring engine launched a paged kernel: {paged}")
+    return launches
+
+
+def engine_profile_phase(cfg, params, dev, label, ecfg, steps=24, **gen_kw):
     """Where an engine iteration's time goes: ``steps`` iterations of a
     fresh full-width engine under torch.profiler. Device time is the sum
     of kernel and copy time on the GPU; its share of the profiled wall
     time is how busy the host keeps the card."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.scheduler import DriftScheduler
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
-    from repro_torch.workload.generator import GeneratorConfig, WorkloadGenerator
-    sched = DriftScheduler("sjf")
-    eng = ServingEngine(cfg, params, sched, EngineConfig(
-        paged=True, n_slots=8, max_len=512, page_size=16,
-        prompt_buckets=(64, 128, 256), chunk_prefill_tokens=128,
-        prefix_cache=True, prefix_cache_pages=64), device=dev)
-    gen = WorkloadGenerator(GeneratorConfig(
-        total_requests=8, calibration_requests=8, max_tokens=64, seed=1,
-        shared_prefix_tokens=64))
-    for i, (_, r) in enumerate(gen.plan(seed=1).calibration):
-        sched.submit(r, 1e-6 * i)
+    eng, _, _ = serve(cfg, params, dev, ecfg, 8, 1, **gen_kw)
     for i in range(4):                     # admit + prefill, then decode
         eng.step(float(i))
     torch.cuda.synchronize()
@@ -477,7 +711,7 @@ def engine_profile_phase(cfg, params, dev, steps=24):
     device_ms = sum(us for us, _ in per_kernel.values()) / 1e3
     launches = sum(n for _, n in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
-    phase("engine_profile", iterations=steps,
+    phase(label, iterations=steps,
           profiled_wall_ms_per_iteration=wall_ms / steps,
           device_ms_per_iteration=device_ms / steps,
           device_busy_share=device_ms / wall_ms,
@@ -487,7 +721,59 @@ def engine_profile_phase(cfg, params, dev, steps=24):
           top_launches_per_iteration={
               k[:60]: n / steps for k, (_, n) in top})
     if device_ms <= 0:
-        fail("profiler saw no device time in the engine iterations")
+        fail(f"{label}: profiler saw no device time in the engine iterations")
+
+
+def check_logits(label, kern, plain, plain32, **fields):
+    """Kernel-path logits against the plain path's, within the plain
+    path's own bf16-vs-float32 deviation; a greedy flip only at a
+    near-tie of the plain path."""
+    from repro_torch.models.steps import sample_logits
+    tol = max(max_err(a, b) for a, b in zip(plain, plain32))
+    worst, ties, rows = 0.0, 0, 0
+    for got, want in zip(kern, plain):
+        worst = max(worst, max_err(got, want))
+        g_tok, w_tok = sample_logits(got, None), sample_logits(want, None)
+        rows += len(g_tok)
+        for b in torch.nonzero(g_tok != w_tok).flatten().tolist():
+            gap = (want[b, w_tok[b]] - want[b, g_tok[b]]).item()
+            if gap > tol:
+                fail(f"{label}: greedy token differs in row {b}: kernels "
+                     f"{g_tok[b].item()} vs plain {w_tok[b].item()}, "
+                     f"plain-path gap {gap} > {tol}")
+            ties += 1
+    phase(label, max_abs_logit_err=worst, tol_bf16_vs_f32_plain=tol,
+          logit_std=plain[-1].std().item(), greedy_rows=rows,
+          near_tie_flips=ties, **fields)
+    if worst > tol:
+        fail(f"{label}: logits kernels vs plain: max abs err {worst} > {tol}")
+
+
+def engine_slot_check_phase(cfg, params, dev):
+    """One full-width prefill of four 256-token prompts (flash kernel)
+    and one decode step from the cache it made, against the same calls
+    through the plain versions."""
+    from repro_torch.models import transformer
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(1, cfg.vocab, (4, 256), generator=gen, device=dev)
+    step = torch.randint(1, cfg.vocab, (4,), generator=gen, device=dev)
+
+    def run(impl, dtype):
+        p = params if dtype is None else _cast(params, dtype)
+        c = cfg if dtype is None else cfg.replace(dtype="float32")
+        lp, cache = transformer.prefill(c, p, tokens, max_len=512, impl=impl)
+        ld, _ = transformer.decode_step(c, p, cache, step, 256)
+        return lp.float(), ld.float()
+
+    reset_launches()
+    kern = run("auto", None)
+    n_flash = read_launches()["flash_attention"]
+    plain, plain32 = run("reference", None), run("reference", torch.float32)
+    torch.cuda.synchronize()
+    if n_flash != cfg.n_layers:
+        fail(f"engine_slot_check: {n_flash} flash launches for one "
+             f"{cfg.n_layers}-layer prefill")
+    check_logits("engine_slot_check", kern, plain, plain32)
 
 
 def engine_check_phase(cfg, params, eng, dev):
@@ -495,7 +781,6 @@ def engine_check_phase(cfg, params, eng, dev):
     kernels against the same calls through the plain versions, each
     from a copy of the engine's pool after its run."""
     from repro_torch.models import transformer
-    from repro_torch.models.steps import sample_logits
     gen = torch.Generator(device=dev).manual_seed(3)
     pps = eng.alloc.pages_per_seq
     n_pages = eng.pool.n_pages
@@ -526,25 +811,7 @@ def engine_check_phase(cfg, params, eng, dev):
     kern, plain = run("auto", None), run("reference", None)
     plain32 = run("reference", torch.float32)
     torch.cuda.synchronize()
-    tol = max(max_err(a, b) for a, b in zip(plain, plain32))
-    worst, ties = 0.0, 0
-    for got, want in zip(kern, plain):
-        worst = max(worst, max_err(got, want))
-        g_tok, w_tok = sample_logits(got, None), sample_logits(want, None)
-        for b in torch.nonzero(g_tok != w_tok).flatten().tolist():
-            # a flip is allowed only where the plain path itself has the
-            # two tokens within the tolerance (a near-tie)
-            gap = (want[b, w_tok[b]] - want[b, g_tok[b]]).item()
-            if gap > tol:
-                fail(f"greedy token differs in row {b}: kernels "
-                     f"{g_tok[b].item()} vs plain {w_tok[b].item()}, "
-                     f"plain-path gap {gap} > {tol}")
-            ties += 1
-    phase("engine_check", max_abs_logit_err=worst,
-          tol_bf16_vs_f32_plain=tol, logit_std=plain[1].std().item(),
-          greedy_rows=9, near_tie_flips=ties)
-    if worst > tol:
-        fail(f"logits kernels vs plain: max abs err {worst} > {tol}")
+    check_logits("engine_check", kern, plain, plain32)
 
 
 def _cast(tree, dtype):
@@ -567,14 +834,25 @@ def main() -> int:
     build_phase()
     kernel_check_phase(dev)
     rows = kernel_times_phase(dev)
-    cfg, params, eng, launches = engine_phase(dev)
-    engine_profile_phase(cfg, params, dev)
+    cfg, params, eng, paged_launches = engine_phase(dev)
+    engine_profile_phase(cfg, params, dev, "engine_profile", PAGED_ENGINE,
+                         shared_prefix_tokens=64)
     engine_check_phase(cfg, params, eng, dev)
+    del eng
+    slot_launches = engine_slot_phase(cfg, params, dev)
+    engine_profile_phase(cfg, params, dev, "engine_slot_profile", SLOT_ENGINE)
+    engine_slot_check_phase(cfg, params, dev)
 
+    # each kernel's launches on the engine run whose path it is on (the
+    # per-sequence paged decode is on no engine path: 0 in both)
+    on_path = {"batched_paged_decode_attention": paged_launches,
+               "chunked_prefill_attention": paged_launches,
+               "paged_decode_attention": paged_launches,
+               "flash_attention": slot_launches}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = on_path[r["name"]][r["name"]]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,6 @@ each module here has a counterpart of the same path there. The port
 imports ``torch`` and ``numpy`` only; the host layers it needs
 (scheduler core, observability, workload, KV page bookkeeping) are its
 own copies. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; the two attention kernels of the paged serving path
-are CUDA C++ written for Hopper (``kernels/csrc``).
+``device="cpu"``; the attention kernels of the slot-ring and paged
+serving paths are CUDA C++ written for Hopper (``kernels/csrc``).
 """

@@ -12,6 +12,7 @@ from ..models.config import ModelConfig
 # arch id -> module name (one module per supported architecture)
 _MODULES: Dict[str, str] = {
     "smollm-135m": "smollm_135m",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
 }
 
 ARCHS: List[str] = list(_MODULES)

@@ -1,7 +1,7 @@
 """Build the CUDA sources under ``csrc/`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` has a plain C entry point and compiles on its
-own into ``<build dir>/<name>-<hash>.so``:
+Each ``csrc/<name>.cu`` has one or more plain C entry points and
+compiles on its own into ``<build dir>/<name>-<hash>.so``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o <name>-<hash>.so csrc/<name>.cu
@@ -32,12 +32,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of every entry point: (name, argtypes)
-SIGNATURES: Dict[str, tuple] = {
-    "paged_decode": ("batched_paged_decode_launch",
-                     [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P]),
-    "chunked_prefill": ("chunked_prefill_launch",
-                        [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P]),
+# C signature of every entry point: source -> {symbol: argtypes}
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "paged_decode": {
+        "batched_paged_decode_launch": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P],
+        "paged_decode_launch": [_P] * 6 + [_I] * 6 + [_F, _F, _I, _P],
+    },
+    "chunked_prefill": {
+        "chunked_prefill_launch": [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_F, _F, _I, _P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -104,17 +110,17 @@ def build_all() -> List[str]:
     return names
 
 
-def load(name: str):
-    """The C entry point of ``csrc/<name>.cu``, built on first use, with
-    its ``argtypes`` set (``c_void_p`` for pointers and the stream) and
-    ``restype`` ``c_int`` (the ``cudaGetLastError()`` after launch)."""
+def load(name: str, symbol: str):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, built on first
+    use, with its ``argtypes`` set (``c_void_p`` for pointers and the
+    stream) and ``restype`` ``c_int`` (the ``cudaGetLastError()`` after
+    launch)."""
     if name not in _loaded:
         _finish(name, _start(name))
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
-    symbol, argtypes = SIGNATURES[name]
     fn = getattr(_loaded[name], symbol)
-    fn.argtypes = argtypes
+    fn.argtypes = SIGNATURES[name][symbol]
     fn.restype = ctypes.c_int
     return fn
 

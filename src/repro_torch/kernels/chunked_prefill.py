@@ -65,7 +65,7 @@ def chunked_prefill_attention(
     out = torch.empty_like(q)
     if B == 0 or chunk == 0:
         return out
-    fn = _build.load("chunked_prefill")
+    fn = _build.load("chunked_prefill", "chunked_prefill_launch")
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), q_offsets.data_ptr(), kv_lens.data_ptr(),
              out.data_ptr(), B, chunk, H, Hk, D, page_size, pages_per_seq,

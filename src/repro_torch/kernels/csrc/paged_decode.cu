@@ -1,11 +1,16 @@
-// Batched paged decode attention for Hopper (sm_90a).
+// Paged decode attention for Hopper (sm_90a), two entry points on one body.
 //
 // Replaces: src/repro/kernels/paged_attention.py::batched_paged_decode_attention
-// (Pallas body _batched_kernel). One decode token per sequence attends
-// the shared page pool through its page table; the current token's K/V
-// (k_new/v_new, not yet in the pool) are folded in as a trailing
-// virtual token, so the kernel never reads a page the same-step scatter
-// writes. Optional logit softcap. Float32 scores, softmax and sums.
+// (Pallas body _batched_kernel; entry batched_paged_decode_launch) and
+// src/repro/kernels/paged_attention.py::paged_decode_attention (Pallas
+// body _paged_kernel; entry paged_decode_launch). One decode token per
+// sequence attends the shared page pool through its page table. The
+// batched form folds the current token's K/V (k_new/v_new, not yet in
+// the pool) in as a trailing virtual token, so the kernel never reads a
+// page the same-step scatter writes, and trims the page loop to
+// n_page_steps; the per-sequence form (kFused = false) attends the
+// resident seq_len tokens only, over every page they fill. Optional
+// logit softcap. Float32 scores, softmax and sums.
 //
 // What bounds it on this card: bytes. Each (sequence, kv head) streams
 // its K/V once, seq_len * D * 2 values, and does 4 * group FLOPs per
@@ -25,7 +30,8 @@
 // an inactive slot (seq_len 0) reads no page at all. Simple and right
 // first; splitting pages across blocks (flash-decoding), vector loads
 // and tensor-core products are later work (a (B, Hk) grid fills 24 of
-// the 132 SMs at the engine's shapes).
+// the 132 SMs at the engine's shapes). In the per-sequence form a
+// seq_len of 0 reads no page and writes zeros.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -45,9 +51,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-template <typename T>
+template <typename T, bool kFused>
 __global__ void __launch_bounds__(kThreads)
-batched_paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
+paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
                             const T* __restrict__ kp,       // [n_pages, P, Hk, D]
                             const T* __restrict__ vp,
                             const int* __restrict__ page_table,  // [B, pps]
@@ -82,10 +88,10 @@ batched_paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
     m[g] = -INFINITY;
     l[g] = 0.f;
   }
-  const int seq_len = seq_lens[b];
+  const int seq_len = max(seq_lens[b], 0);
   const int steps = min(n_page_steps, (seq_len + P - 1) / P);
   const int kv_len = min(seq_len, steps * P);  // pool tokens attended
-  const int total = kv_len + 1;                // + the fused new token
+  const int total = kv_len + (kFused ? 1 : 0); // + the fused new token
   __syncthreads();
 
   for (int t0 = 0; t0 < total; t0 += kTile) {
@@ -94,7 +100,7 @@ batched_paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
       const int t = i / D, d = i - t * D;
       const int tok = t0 + t;
       float kx, vx;
-      if (tok < kv_len) {
+      if (!kFused || tok < kv_len) {
         const int page = page_table[(size_t)b * pps + tok / P];
         const size_t off = (((size_t)page * P + tok % P) * Hk + h) * D + d;
         kx = to_f32(kp[off]);
@@ -154,7 +160,7 @@ batched_paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
   }
 }
 
-template <typename T>
+template <typename T, bool kFused>
 int launch(const void* q, const void* kp, const void* vp, const void* page_table,
            const void* seq_lens, const void* k_new, const void* v_new, void* out,
            int B, int H, int Hk, int D, int P, int pps, int n_page_steps,
@@ -163,7 +169,7 @@ int launch(const void* q, const void* kp, const void* vp, const void* page_table
   const size_t smem = sizeof(float) *
       ((size_t)group * D + kTile * (D + 1) + kTile * D + group * kTile +
        (size_t)group * D + 3 * group);
-  auto kernel = batched_paged_decode_kernel<T>;
+  auto kernel = paged_decode_kernel<T, kFused>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -189,10 +195,28 @@ extern "C" int batched_paged_decode_launch(
     int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, page_table, seq_lens, k_new, v_new,
-                         out, B, H, Hk, D, page_size, pages_per_seq,
-                         n_page_steps, scale, softcap, s);
-  return launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, seq_lens, k_new,
+    return launch<float, true>(q, k_pages, v_pages, page_table, seq_lens, k_new,
                                v_new, out, B, H, Hk, D, page_size, pages_per_seq,
                                n_page_steps, scale, softcap, s);
+  return launch<__nv_bfloat16, true>(q, k_pages, v_pages, page_table, seq_lens,
+                                     k_new, v_new, out, B, H, Hk, D, page_size,
+                                     pages_per_seq, n_page_steps, scale, softcap, s);
+}
+
+// The per-sequence form: no fused token, the loop over every page the
+// resident tokens fill. Same dtype and return conventions.
+extern "C" int paged_decode_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* page_table, const void* seq_lens, void* out, int B, int H,
+    int Hk, int D, int page_size, int pages_per_seq, float scale,
+    float softcap, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float, false>(q, k_pages, v_pages, page_table, seq_lens,
+                                nullptr, nullptr, out, B, H, Hk, D, page_size,
+                                pages_per_seq, pages_per_seq, scale, softcap, s);
+  return launch<__nv_bfloat16, false>(q, k_pages, v_pages, page_table, seq_lens,
+                                      nullptr, nullptr, out, B, H, Hk, D,
+                                      page_size, pages_per_seq, pages_per_seq,
+                                      scale, softcap, s);
 }

@@ -19,8 +19,10 @@ import torch
 
 from . import ref
 from .chunked_prefill import chunked_prefill_attention as _chunked_prefill_cuda
+from .flash_attention import flash_attention as _flash_cuda
 from .paged_attention import (
     batched_paged_decode_attention as _batched_paged_cuda,
+    paged_decode_attention as _paged_cuda,
 )
 
 Impl = str  # 'auto' | 'cuda' | 'reference'
@@ -33,6 +35,65 @@ def _use_kernel(impl: Impl, x: torch.Tensor) -> bool:
     if impl == "cuda" and x.device.type != "cuda":
         raise ValueError(f"impl='cuda' needs CUDA tensors, got {x.device}")
     return impl != "reference"
+
+
+def attention(
+    q: torch.Tensor,            # [B, Lq, H, D]
+    k: torch.Tensor,            # [B, Lk, Hk, D]
+    v: torch.Tensor,            # [B, Lk, Hk, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    logit_softcap: Optional[float] = None,
+    prefix_len: int = 0,
+    impl: Impl = "auto",
+) -> torch.Tensor:
+    """Batched GQA attention, queries aligned to the end of the keys:
+    the prefill path's flash attention (see
+    ``flash_attention.flash_attention``)."""
+    if _use_kernel(impl, q):
+        return _flash_cuda(q, k, v, causal=causal, window=window,
+                           logit_softcap=logit_softcap, prefix_len=prefix_len)
+    return ref.flash_attention_chunked(
+        q, k, v, causal=causal, window=window, logit_softcap=logit_softcap,
+        prefix_len=prefix_len)
+
+
+def decode_attention(
+    q: torch.Tensor,            # [B, H, D]
+    k_cache: torch.Tensor,      # [B, S, Hk, D]
+    v_cache: torch.Tensor,      # [B, S, Hk, D]
+    cache_len: torch.Tensor,    # [B] int
+    *,
+    window: Optional[int] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token decode against a contiguous per-sequence cache.
+    Plain PyTorch on every device: the JAX package has no Pallas kernel
+    for it either (a memory-bound gather and GEMV)."""
+    return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                    window=window,
+                                    logit_softcap=logit_softcap)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,            # [B, H, D]
+    k_pages: torch.Tensor,      # [n_pages, page_size, Hk, D]
+    v_pages: torch.Tensor,      # [n_pages, page_size, Hk, D]
+    page_table: torch.Tensor,   # [B, pages_per_seq] int32
+    seq_lens: torch.Tensor,     # [B] int32
+    *,
+    logit_softcap: Optional[float] = None,
+    impl: Impl = "auto",
+) -> torch.Tensor:
+    """Per-sequence decode attention over the paged KV pool (see
+    ``paged_attention.paged_decode_attention``)."""
+    if _use_kernel(impl, q):
+        return _paged_cuda(q, k_pages, v_pages, page_table, seq_lens,
+                           logit_softcap=logit_softcap)
+    return ref.paged_decode_attention_ref(
+        q, k_pages, v_pages, page_table, seq_lens,
+        logit_softcap=logit_softcap)
 
 
 def batched_paged_decode_attention(

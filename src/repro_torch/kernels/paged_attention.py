@@ -1,5 +1,5 @@
-"""Batched paged decode attention: one engine iteration's whole decode
-set in a single kernel launch.
+"""Paged decode attention: the batched form (one engine iteration's
+whole decode set in a single kernel launch) and the per-sequence form.
 
 Port of the JAX package's ``kernels/paged_attention.py::
 batched_paged_decode_attention``. Each sequence's one new token attends
@@ -11,9 +11,15 @@ bounds the page loop to the deepest live sequence; it is a hint that
 never changes results when it covers every live sequence, as the
 engine's does.
 
-On a CUDA tensor the wrapper launches ``csrc/paged_decode.cu`` or
-raises; on a CPU tensor it runs the plain version
-(``ref.batched_paged_decode_attention_ref``).
+:func:`paged_decode_attention` ports ``paged_decode_attention``: the
+same body without the fused token and without the trim, attending the
+``seq_lens`` resident tokens over every page they fill. No model path
+calls it; it is held against its plain version on the card.
+
+On a CUDA tensor each wrapper launches its entry of
+``csrc/paged_decode.cu`` or raises; on a CPU tensor it runs the plain
+version (``ref.batched_paged_decode_attention_ref``,
+``ref.paged_decode_attention_ref``).
 """
 
 from __future__ import annotations
@@ -24,8 +30,10 @@ import torch
 
 from . import _build, ref
 
-#: kernel launches on CUDA tensors (never counts the plain version)
+#: batched-kernel launches on CUDA tensors (never counts the plain version)
 launches = 0
+#: per-sequence-kernel launches on CUDA tensors
+paged_decode_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -93,7 +101,7 @@ def batched_paged_decode_attention(
     out = torch.empty_like(q)
     if B == 0:
         return out
-    fn = _build.load("paged_decode")
+    fn = _build.load("paged_decode", "batched_paged_decode_launch")
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), seq_lens.data_ptr(), k_new.data_ptr(),
              v_new.data_ptr(), out.data_ptr(), B, H, Hk, D, page_size,
@@ -103,4 +111,49 @@ def batched_paged_decode_attention(
     _build.check(err, "batched_paged_decode_attention")
     global launches
     launches += 1
+    return out
+
+
+def paged_decode_attention(
+    q: torch.Tensor,            # [B, H, D]
+    k_pages: torch.Tensor,      # [n_pages, page_size, Hk, D]
+    v_pages: torch.Tensor,      # [n_pages, page_size, Hk, D]
+    page_table: torch.Tensor,   # [B, pages_per_seq] int32
+    seq_lens: torch.Tensor,     # [B] int32 resident tokens
+    *,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention of the ``seq_lens`` resident tokens per sequence; out
+    [B, H, D] in q's dtype, float32 accumulation, zeros where
+    ``seq_lens`` is 0. Table entries past ``ceil(seq_len / page)`` are
+    never read."""
+    B, H, D = q.shape
+    n_pages, page_size, Hk, _ = k_pages.shape
+    pages_per_seq = page_table.shape[1]
+    if H % Hk:
+        raise ValueError(f"{H} query heads do not group over {Hk} kv heads")
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention_ref(
+            q, k_pages, v_pages, page_table, seq_lens,
+            logit_softcap=logit_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    check_operands(q, k_pages, v_pages, page_table, seq_lens)
+    if page_table.shape[0] != B or seq_lens.shape != (B,):
+        raise ValueError("page_table must be [B, P], seq_lens [B]")
+    q = q.contiguous()
+    page_table = page_table.to(torch.int32).contiguous()
+    seq_lens = seq_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    fn = _build.load("paged_decode", "paged_decode_launch")
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+             B, H, Hk, D, page_size, pages_per_seq, D ** -0.5,
+             0.0 if logit_softcap is None else float(logit_softcap),
+             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "paged_decode_attention")
+    global paged_decode_launches
+    paged_decode_launches += 1
     return out

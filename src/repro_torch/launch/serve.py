@@ -1,13 +1,14 @@
-"""Serving launcher of the port: the paged engine on one device.
+"""Serving launcher of the port: the serving engine on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch smollm-135m --requests 24
+        --arch smollm-135m --requests 24 [--paged on]
 
 Counterpart of the JAX package's ``launch/serve.py --engine jax``: the
 real continuous-batching engine, here at the arch's full width on
 ``cuda`` (random weights from ``--seed``), with the same scheduler state
-machine. ``--device cpu`` runs on the CPU with the kernels' plain
-versions.
+machine. ``--paged off`` (the default) is that launcher's engine, the
+slot-ring cache; ``--paged on`` serves from the paged KV pool.
+``--device cpu`` runs on the CPU with the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from ..configs import ARCHS, get_config
 from ..core.estimator import DriftConfig
 from ..core.scheduler import DriftScheduler
-from ..models import transformer
+from ..models.registry import get_api
 from ..serving.engine import EngineConfig, ServingEngine
 from ..workload.generator import GeneratorConfig, WorkloadGenerator
 
@@ -34,6 +35,7 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--arch", default="smollm-135m", choices=ARCHS)
+    ap.add_argument("--paged", default="off", choices=["on", "off"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
@@ -42,11 +44,12 @@ def main(argv=None) -> int:
         policy=args.policy,
         config=DriftConfig(bias_enabled=args.bias == "on"))
     cfg = get_config(args.arch)
-    params = transformer.init(
+    params = get_api(cfg).init(
         cfg, torch.Generator().manual_seed(args.seed), device=args.device)
     eng = ServingEngine(cfg, params, sched,
                         EngineConfig(n_slots=8, max_len=128,
-                                     prompt_buckets=(16, 32), paged=True),
+                                     prompt_buckets=(16, 32),
+                                     paged=args.paged == "on"),
                         device=args.device)
     gen = WorkloadGenerator(GeneratorConfig(
         total_requests=args.requests,

@@ -1,2 +1,2 @@
-"""Model code of the port: the dense decoder-only transformer's paged
-serving path."""
+"""Model code of the port: the dense decoder-only transformer's serving
+paths (slot-ring and paged)."""

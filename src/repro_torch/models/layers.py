@@ -1,8 +1,9 @@
 """Dense model building blocks of the port (plain functions on tensors,
 params as dicts).
 
-The subset of the JAX package's ``models/layers.py`` the dense paged
-serving path runs, with its conventions and layouts kept:
+The subset of the JAX package's ``models/layers.py`` the dense serving
+paths run (paged and slot-ring, with the int8 KV cache's quantisation),
+with its conventions and layouts kept:
 
 * attention weights are head-split: wq [d, H, hd], wk/wv [d, Hk, hd],
   wo [H, hd, d]; MLP w1/w3 [d, ff], w2 [ff, d]; embedding table [V, d];
@@ -17,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from .config import ModelConfig
 
 
@@ -118,6 +120,66 @@ def qkv_project(p: Dict, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return (project_heads(x, p["wq"]), project_heads(x, p["wk"]),
             project_heads(x, p["wv"]))
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantisation per (.., head) over the head_dim:
+    returns (int8 values, float32 scales of shape ``x.shape[:-1]``)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale[..., None]
+
+
+def attention_decode(
+    cfg: ModelConfig,
+    p: Dict,
+    x: torch.Tensor,                    # [B, d] one token per sequence
+    k_cache: torch.Tensor,              # [B, S, Hk, hd]
+    v_cache: torch.Tensor,
+    pos: "int | torch.Tensor",          # [] or [B] absolute position
+    cache_len: torch.Tensor,            # [B] valid entries AFTER this write
+    *,
+    kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Cached single-token decode. Writes the new K/V into ring slot
+    ``pos % S`` of the caches (in place; ``pos`` a scalar for a lockstep
+    batch or one position per slot), then attends over the valid cache.
+    With ``kv_scales`` (the int8 cache, in place too) the new entry is
+    quantised on write and the cache dequantised to q's dtype for
+    attention. Returns out [B, d]."""
+    B = x.shape[0]
+    S = k_cache.shape[1]
+    q, k_new, v_new = qkv_project(p, x)              # [B, H|Hk, hd]
+    pos = torch.as_tensor(pos, device=x.device).long()
+    if cfg.pos == "rope":
+        posb = pos.expand(B)
+        q = apply_rope(q, posb, cfg.rope_theta)
+        k_new = apply_rope(k_new, posb, cfg.rope_theta)
+    if kv_scales is not None:
+        k_new, ks_new = quantize_kv(k_new)
+        v_new, vs_new = quantize_kv(v_new)
+    slot = pos % S                                   # ring when S < max_len
+    idx = (slice(None), slot) if slot.ndim == 0 else \
+        (torch.arange(B, device=x.device), slot)
+    k_cache[idx] = k_new.to(k_cache.dtype)
+    v_cache[idx] = v_new.to(v_cache.dtype)
+    if kv_scales is not None:
+        kv_scales[0][idx] = ks_new
+        kv_scales[1][idx] = vs_new
+        k_attn = dequantize_kv(k_cache, kv_scales[0]).to(q.dtype)
+        v_attn = dequantize_kv(v_cache, kv_scales[1]).to(q.dtype)
+    else:
+        k_attn, v_attn = k_cache, v_cache
+    # a ring cache holds only positions inside the window, so no window
+    # mask is applied here (the JAX layer passes window=None too)
+    out = ops.decode_attention(q, k_attn, v_attn, cache_len,
+                               logit_softcap=cfg.logit_softcap, window=None)
+    return merge_heads(out, p["wo"])
 
 
 def init_mlp(gen, cfg: ModelConfig, device) -> Dict:

@@ -1,20 +1,28 @@
-"""Dense decoder-only transformer: init and the paged serving path.
+"""Dense decoder-only transformer: init and both serving paths.
 
 Port of the JAX package's ``models/transformer.py`` for the dense
-family: :func:`init`, :func:`decode_step_paged` and
-:func:`prefill_chunk_paged`. Per-layer params stay stacked on a leading
-``L`` axis (the JAX layout, so the tests compare like with like); the
-layer ``lax.scan`` becomes a Python loop over that axis.
+family: :func:`init`; the slot-ring path (:func:`cache_size`,
+:func:`init_cache`, :func:`prefill`, :func:`decode_step`, with the
+sliding-window ring and the int8 KV cache); and the paged path
+(:func:`decode_step_paged`, :func:`prefill_chunk_paged`). Per-layer
+params stay stacked on a leading ``L`` axis (the JAX layout, so the
+tests compare like with like); the layer ``lax.scan`` becomes a Python
+loop over that axis. The full-sequence ``forward`` comes with the
+training slice (ROADMAP.md, queue A).
 
-The page pool ``{"k": [L, n_pages, page, Hk, hd], "v": ...}`` is updated
-in place: the JAX functions return a new pool, these write into the one
-they are given. Every write and every kernel read is on PyTorch's
-current stream, so they run in program order.
+The caches are updated in place: the contiguous cache
+``{"k": [L, B, S, Hk, hd], "v": ..., "lens": [B]}`` (plus ``k_scale`` /
+``v_scale`` for int8) by :func:`decode_step`, which returns the same
+K/V tensors with new ``lens``; the page pool
+``{"k": [L, n_pages, page, Hk, hd], "v": ...}`` by the paged functions.
+The JAX functions return new caches instead. Every write and every
+kernel read is on PyTorch's current stream, so they run in program
+order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -70,6 +78,121 @@ def layer_params(params: Dict, i: int) -> Dict:
 def _head(cfg: ModelConfig, params: Dict) -> Dict:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
+
+# ---------------------------------------------------------------------------
+# slot-ring (contiguous KV cache) serving path
+# ---------------------------------------------------------------------------
+
+def cache_size(cfg: ModelConfig, max_len: int) -> int:
+    """Sliding-window archs keep a ring buffer of the window only."""
+    if cfg.sliding_window is not None:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: "str | torch.device" = "cuda") -> Dict:
+    """Zeroed contiguous cache for ``batch`` slots of ``cache_size``
+    positions in ``cfg.dtype``; int8 values with float32
+    per-(position, head) scales when ``cfg.kv_dtype == "int8"``."""
+    device = nn.resolve_device(device)
+    S = cache_size(cfg, max_len)
+    dtype = torch.int8 if cfg.kv_dtype == "int8" else nn.dt(cfg)
+    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.d_head)
+    cache = {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "lens": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+    if dtype == torch.int8:
+        cache["k_scale"] = torch.zeros(shape[:-1], device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], device=device)
+    return cache
+
+
+def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+            max_len: Optional[int] = None,
+            impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
+    """Process the full prompt ``tokens`` [B, L]; return (last-position
+    logits [B, V], a filled cache of ``cache_size(cfg, max_len or L)``
+    positions). Attention is one flash-attention call per layer (causal,
+    ``cfg.sliding_window``). The cache keeps the trailing ``S``
+    positions; when a windowed prompt is longer than the ring it is
+    rolled by ``L % S`` so that slot ``i`` holds position ``L - S + i``
+    modulo ``S``, as decode's ``pos % S`` indexing expects."""
+    _check_family(cfg)
+    B, L = tokens.shape
+    S = cache_size(cfg, max_len or L)
+    positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
+    h = nn.embed(cfg, params["embed"], tokens)           # [B, L, d]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        attn_in = nn.rms_norm(h, lp["ln1"]["scale"])
+        q, k, v = nn.qkv_project(lp["attn"], attn_in)   # [B, L, H/Hk, hd]
+        if cfg.pos == "rope":
+            q = nn.apply_rope(q, positions, cfg.rope_theta)
+            k = nn.apply_rope(k, positions, cfg.rope_theta)
+        attn = ops.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                             logit_softcap=cfg.logit_softcap, impl=impl)
+        h = h + nn.merge_heads(attn, lp["attn"]["wo"])
+        h = h + nn.mlp_block(cfg, lp["mlp"], nn.rms_norm(h, lp["ln2"]["scale"]))
+        k_keep = k[:, -S:].to(nn.dt(cfg))
+        v_keep = v[:, -S:].to(nn.dt(cfg))
+        if cfg.sliding_window is not None and L > S:
+            shift = L % S
+            k_keep = torch.roll(k_keep, shift, dims=1)
+            v_keep = torch.roll(v_keep, shift, dims=1)
+        ks.append(k_keep)
+        vs.append(v_keep)
+    h = nn.rms_norm(h[:, -1], params["final_norm"]["scale"])
+    logits = nn.unembed(cfg, _head(cfg, params), h)
+
+    ks, vs = torch.stack(ks), torch.stack(vs)            # [L, B, <=S, Hk, hd]
+    if L < S:
+        pad = (0, 0, 0, 0, 0, S - L)
+        ks = torch.nn.functional.pad(ks, pad)
+        vs = torch.nn.functional.pad(vs, pad)
+    cache = {"lens": torch.full((B,), min(L, S), dtype=torch.int32,
+                                device=tokens.device)}
+    if cfg.kv_dtype == "int8":
+        cache["k"], cache["k_scale"] = nn.quantize_kv(ks)
+        cache["v"], cache["v_scale"] = nn.quantize_kv(vs)
+    else:
+        cache["k"], cache["v"] = ks, vs
+    return logits, cache
+
+
+def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
+                tokens: torch.Tensor,          # [B] current token
+                pos: "int | torch.Tensor",     # [] or [B] absolute position
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One decode iteration for the whole batch against the contiguous
+    cache: each slot writes its token's K/V at ring slot ``pos % S`` (in
+    place) and attends its ``min(lens + 1, S)`` valid entries. Returns
+    (logits [B, V], the cache with the same K/V tensors and new
+    ``lens``)."""
+    _check_family(cfg)
+    S = cache["k"].shape[2]
+    new_lens = torch.clamp(cache["lens"] + 1, max=S).to(torch.int32)
+    quant = "k_scale" in cache
+    h = nn.embed(cfg, params["embed"], tokens)           # [B, d]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quant
+                  else None)
+        attn_in = nn.rms_norm(h, lp["ln1"]["scale"])
+        h = h + nn.attention_decode(
+            cfg, lp["attn"], attn_in, cache["k"][i], cache["v"][i], pos,
+            new_lens, kv_scales=scales)
+        h = h + nn.mlp_block(cfg, lp["mlp"], nn.rms_norm(h, lp["ln2"]["scale"]))
+    h = nn.rms_norm(h, params["final_norm"]["scale"])
+    return nn.unembed(cfg, _head(cfg, params), h), {**cache, "lens": new_lens}
+
+
+# ---------------------------------------------------------------------------
+# paged serving path
+# ---------------------------------------------------------------------------
 
 def decode_step_paged(cfg: ModelConfig, params: Dict, pool: Dict,
                       tokens: torch.Tensor,       # [B] current token

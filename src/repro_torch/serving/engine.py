@@ -1,35 +1,46 @@
-"""The continuous-batching serving engine of the port (paged path).
+"""The continuous-batching serving engine of the port.
 
-Port of the JAX package's ``serving/engine.py`` for the paged
-transformer path. It drives the identical ``DriftScheduler`` state
-machine — admission, dispatch, completion feedback (Eq. 5-6) — and the
-identical page bookkeeping (``kv_cache.PagedSeqLedger`` with the
-shared-prefix ``PrefixTree``), so at temperature 0 it emits the same
-tokens, completion order and TTFT stamps as the JAX engine on the same
-weights and requests.
+Port of the JAX package's ``serving/engine.py`` for the dense
+transformer, on both of its caches. It drives the identical
+``DriftScheduler`` state machine — admission, dispatch, completion
+feedback (Eq. 5-6) — and, on the paged path, the identical page
+bookkeeping (``kv_cache.PagedSeqLedger`` with the shared-prefix
+``PrefixTree``), so at temperature 0 it emits the same tokens,
+completion order and TTFT stamps as the JAX engine on the same weights
+and requests.
 
-* ``n_slots`` sequences decode together, one token per engine step,
-  through :func:`transformer.decode_step_paged`: one batched
-  paged-decode kernel launch per layer.
+* Slot-ring cache (``EngineConfig.paged=False``, the default): a
+  fixed ring of ``n_slots`` contiguous per-slot caches
+  (``api.init_cache``; a window-sized ring for sliding-window archs).
+  A slot's prompt bucket prefills in one shot through ``api.prefill``
+  (one flash-attention kernel launch per layer) the iteration its last
+  prompt chunk is consumed, and the resulting cache is copied into the
+  slot. Every slot decodes each step through ``api.decode_step`` at its
+  own depth (``pos = cache["lens"]``); a free slot's lane computes
+  masked garbage, as on the TPU.
+* Paged cache (``paged=True``): ``n_slots`` sequences decode together,
+  one token per engine step, through
+  :func:`transformer.decode_step_paged`: one batched paged-decode kernel
+  launch per layer.
 * Chunked prefill (``EngineConfig.chunk_prefill_tokens``): a joining
   slot's prompt is consumed across iterations against a per-step token
-  budget shared by prefilling slots in join order. Every chunk executes
-  the iteration its budget is consumed, through
+  budget shared by prefilling slots in join order. On the paged path
+  every chunk executes the iteration its budget is consumed, through
   :func:`transformer.prefill_chunk_paged` (one chunked-prefill kernel
   launch per layer); ``None`` prefills the whole bucket in the admission
   step. The final chunk covers the bucket's padding tail and its
   last-position logits give the first token, stamped as
   ``Request.prefill_end``.
-* Shared-prefix reuse (``EngineConfig.prefix_cache``): a joining
-  request whose prompt starts with a resident shared prefix references
-  the tree's refcount-pinned pages and starts prefill at the cached
-  boundary; freshly written full prefix pages are donated at prefill
-  completion and the pin is released at retirement.
+* Shared-prefix reuse (``EngineConfig.prefix_cache``, paged only): a
+  joining request whose prompt starts with a resident shared prefix
+  references the tree's refcount-pinned pages and starts prefill at the
+  cached boundary; freshly written full prefix pages are donated at
+  prefill completion and the pin is released at retirement.
 
 The pool holds one extra page the allocator never hands out; inactive
-slots scatter their masked decode writes there. The pool is updated in
-place. The slot-ring cache (``paged=False``), the other model families
-and the P/D primitives come with later slices (ROADMAP.md).
+slots scatter their masked decode writes there. Both caches are updated
+in place. The other model families and the P/D primitives come with
+later slices (ROADMAP.md).
 
 EOS: with randomly-initialised models there is no semantic EOS, so
 requests stop at their ground-truth output length (oracle EOS, clipped
@@ -51,6 +62,7 @@ from ..core.scheduler import DriftScheduler
 from ..models import transformer
 from ..models.config import ModelConfig
 from ..models.layers import resolve_device
+from ..models.registry import get_api
 from ..models.steps import sample_logits
 from ..obs import events as tr
 from ..obs import resolve_recorder
@@ -122,18 +134,16 @@ class ServingEngine:
         self.trace_rid: Optional[int] = None
         if self.trace.enabled:
             self.sched.drift.trace = self.trace
-        if not self.ecfg.paged:
-            raise NotImplementedError(
-                "the port serves the paged path only; the slot-ring cache "
-                "(paged=False) is a later slice (ROADMAP.md, queue A)")
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"the port serves the dense family only; {cfg.family!r} is "
-                "a later slice (ROADMAP.md, queue A)")
+        # raises NotImplementedError for the families later slices port
+        self.api = get_api(cfg)
         c = self.ecfg.chunk_prefill_tokens
         if c is not None and c < 1:
             raise ValueError(
                 f"chunk_prefill_tokens must be >= 1 or None, got {c}")
+        if self.ecfg.prefix_cache and not self.ecfg.paged:
+            raise ValueError(
+                "prefix_cache requires paged=True: prefix sharing is "
+                "physical page-table aliasing over the paged pool")
         n, S = self.ecfg.n_slots, self.ecfg.max_len
         self.slots: List[SlotState] = [SlotState() for _ in range(n)]
         self.step_count = 0
@@ -150,23 +160,27 @@ class ServingEngine:
         self.n_prefix_misses = 0
         self.prefix_tokens_saved = 0
 
-        pages_per_seq = -(-S // self.ecfg.page_size)
-        extra = (self.ecfg.prefix_cache_pages
-                 if self.ecfg.prefix_cache else 0)
-        # pool has one extra page the allocator never hands out:
-        # inactive slots scatter their (masked) writes into it
-        self.alloc = PagedAllocator(
-            n_pages=n * pages_per_seq + extra,
-            page_size=self.ecfg.page_size,
-            pages_per_seq=pages_per_seq)
-        if self.ecfg.prefix_cache:
-            self.prefix_tree = PrefixTree(self.alloc)
-        self.ledger = PagedSeqLedger(
-            self.alloc, self.prefix_tree,
-            cache_pages_budget=(self.ecfg.prefix_cache_pages
-                                if self.ecfg.prefix_cache else None))
-        self.pool = PagedPool.create(cfg, self.alloc.n_pages + 1,
-                                     self.ecfg.page_size, device=self.device)
+        if self.ecfg.paged:
+            pages_per_seq = -(-S // self.ecfg.page_size)
+            extra = (self.ecfg.prefix_cache_pages
+                     if self.ecfg.prefix_cache else 0)
+            # pool has one extra page the allocator never hands out:
+            # inactive slots scatter their (masked) writes into it
+            self.alloc = PagedAllocator(
+                n_pages=n * pages_per_seq + extra,
+                page_size=self.ecfg.page_size,
+                pages_per_seq=pages_per_seq)
+            if self.ecfg.prefix_cache:
+                self.prefix_tree = PrefixTree(self.alloc)
+            self.ledger = PagedSeqLedger(
+                self.alloc, self.prefix_tree,
+                cache_pages_budget=(self.ecfg.prefix_cache_pages
+                                    if self.ecfg.prefix_cache else None))
+            self.pool = PagedPool.create(cfg, self.alloc.n_pages + 1,
+                                         self.ecfg.page_size,
+                                         device=self.device)
+        else:
+            self.cache = self.api.init_cache(cfg, n, S, device=self.device)
 
     @property
     def _pool(self) -> Dict[str, torch.Tensor]:
@@ -255,36 +269,41 @@ class ServingEngine:
     # --- admission --------------------------------------------------------
     def _admit(self, req: Request, slot: int, now: float) -> None:
         """Open a slot for ``req``: tokenize, probe/pin the prefix
-        cache, allocate pages and queue the prompt for chunked prefill.
-        The device prefill runs chunk by chunk (:meth:`_advance_prefill`)."""
+        cache, allocate pages (paged mode) and queue the prompt for
+        chunked prefill. The device prefill runs chunk by chunk
+        (:meth:`_advance_prefill`, paged) or in one shot when the last
+        chunk lands (:meth:`_run_prefill`, slot-ring)."""
         prompt_len = max(req.prompt_tokens, 1)
         bucket = _bucket(prompt_len, self.ecfg.prompt_buckets)
         prompt_len = min(prompt_len, bucket)      # truncate to the bucket
         shared_eff = self._shared_eff(req, prompt_len)
         tokens = self._tokenize(req, bucket, prompt_len, shared_eff)
-        key = (self._prefix_key(req, prompt_len)
-               if self.prefix_tree is not None else ())
-        evicted_before = (self.prefix_tree.n_evicted_pages
-                          if self.prefix_tree is not None else 0)
-        cached = self.ledger.admit(slot, bucket, key, now)
-        cached = min(cached, shared_eff)
-        if key:
-            if cached > 0:
-                self.n_prefix_hits += 1
-                self.prefix_tokens_saved += cached
-            else:
-                self.n_prefix_misses += 1
-            if self.trace.enabled:
-                self.trace.emit(
-                    now, tr.PREFIX_HIT if cached > 0 else tr.PREFIX_MISS,
-                    req_id=req.req_id, rid=self.trace_rid,
-                    tenant=req.tenant.label,
-                    **({"tokens": cached} if cached > 0 else {}))
-        if self.trace.enabled and self.prefix_tree is not None:
-            delta = self.prefix_tree.n_evicted_pages - evicted_before
-            if delta > 0:
-                self.trace.emit(now, tr.PREFIX_EVICT,
-                                rid=self.trace_rid, pages=delta)
+        cached = 0
+        if self.ecfg.paged:
+            key = (self._prefix_key(req, prompt_len)
+                   if self.prefix_tree is not None else ())
+            evicted_before = (self.prefix_tree.n_evicted_pages
+                              if self.prefix_tree is not None else 0)
+            cached = self.ledger.admit(slot, bucket, key, now)
+            cached = min(cached, shared_eff)
+            if key:
+                if cached > 0:
+                    self.n_prefix_hits += 1
+                    self.prefix_tokens_saved += cached
+                else:
+                    self.n_prefix_misses += 1
+                if self.trace.enabled:
+                    self.trace.emit(
+                        now, tr.PREFIX_HIT if cached > 0
+                        else tr.PREFIX_MISS,
+                        req_id=req.req_id, rid=self.trace_rid,
+                        tenant=req.tenant.label,
+                        **({"tokens": cached} if cached > 0 else {}))
+            if self.trace.enabled and self.prefix_tree is not None:
+                delta = self.prefix_tree.n_evicted_pages - evicted_before
+                if delta > 0:
+                    self.trace.emit(now, tr.PREFIX_EVICT,
+                                    rid=self.trace_rid, pages=delta)
         req.cached_prompt_tokens = cached
         st = self.slots[slot]
         st.req = req
@@ -302,9 +321,28 @@ class ServingEngine:
         req.state = RequestState.EXECUTING
         req.exec_start = now
 
+    def _insert_cache(self, slot: int, cache_1: Dict) -> None:
+        """Copy a batch-1 prefill cache into slot ``slot`` of the ring
+        (in place): axis 1 of the ``[L, B, ...]`` leaves, axis 0 of
+        ``lens``."""
+        for name, full in self.cache.items():
+            axis = 1 if full.ndim > 1 else 0
+            full.select(axis, slot).copy_(cache_1[name].select(axis, 0))
+
+    def _run_prefill(self, slot: int, now: float) -> None:
+        """Single-shot device prefill of the slot-ring cache: the slot's
+        last prompt chunk landed, so run the whole bucket at once, copy
+        its cache into the slot and emit the first token."""
+        st = self.slots[slot]
+        logits, cache_1 = self.api.prefill(self.cfg, self.params, st.tokens,
+                                           max_len=self.ecfg.max_len)
+        tok = sample_logits(logits, self._gen, self.ecfg.temperature)
+        self._insert_cache(slot, cache_1)
+        self._emit_first_token(slot, int(tok[0]), now)
+
     def _advance_prefill(self, slot: int, take: int, now: float) -> None:
-        """Execute this iteration's device chunk for a slot through the
-        fused kernel. The ``take`` prompt tokens the budget loop just
+        """Execute this iteration's device chunk for a paged slot through
+        the fused kernel. The ``take`` prompt tokens the budget loop just
         consumed map 1:1 onto bucket positions
         ``[prefill_pos, prefill_pos + take)``; the final chunk extends
         through the bucket's padding tail so its last position yields
@@ -364,7 +402,8 @@ class ServingEngine:
                             observed=st.generated, e2e=req.e2e_latency,
                             ttft=req.ttft,
                             inter_token=req.inter_token_latency)
-        self.ledger.free(slot)
+        if self.ecfg.paged:
+            self.ledger.free(slot)
         self._join_order.remove(slot)
         st.req = None
         st.generated = 0
@@ -383,14 +422,13 @@ class ServingEngine:
         ``max_new_per_step`` knob."""
         joined = 0
         cap = self.sched.max_new_per_step
-        pages_per_seq = self.alloc.pages_per_seq
         for slot in self.free_slots():
             if self.sched.queue_depth() == 0:
                 break
             if cap is not None and joined >= cap:
                 break
             if self.prefix_tree is not None and not self.ledger.can_admit(
-                    pages_per_seq * self.ecfg.page_size):
+                    self.alloc.pages_per_seq * self.ecfg.page_size):
                 # conservative page guard: admission waits for
                 # retirements/evictions to free room (only reachable
                 # with a prefix cache — the plain pool is sized exactly)
@@ -402,8 +440,8 @@ class ServingEngine:
             joined += 1
 
         # chunked prefill: apportion the per-step budget in join order;
-        # every chunk executes on device the iteration its budget is
-        # consumed, and the last one emits the slot's first token
+        # a slot's prefill-completing iteration also emits its first
+        # token (and joins this step's decode batch)
         budget = (math.inf if self.ecfg.chunk_prefill_tokens is None
                   else self.ecfg.chunk_prefill_tokens)
         for slot in list(self._join_order):
@@ -417,7 +455,12 @@ class ServingEngine:
                 self.trace.emit(now, tr.PREFILL_CHUNK,
                                 req_id=st.req.req_id, rid=self.trace_rid,
                                 tenant=st.req.tenant.label, tokens=take)
-            self._advance_prefill(slot, take, now)
+            if self.ecfg.paged:
+                # every chunk executes on device the iteration its
+                # budget is consumed (fused chunked-prefill kernel)
+                self._advance_prefill(slot, take, now)
+            elif st.prefill_remaining <= 0:
+                self._run_prefill(slot, now)
             if budget <= 0:
                 break
 
@@ -433,6 +476,50 @@ class ServingEngine:
         tokens = np.zeros((self.ecfg.n_slots,), np.int64)
         for i in decoding:
             tokens[i] = self.slots[i].last_token
+        if self.ecfg.paged:
+            toks = self._decode_paged(tokens, decoding)
+        else:
+            # every lane at its own depth; lens is replaced, not mutated
+            logits, self.cache = self.api.decode_step(
+                self.cfg, self.params, self.cache,
+                torch.from_numpy(tokens).to(self.device), self.cache["lens"])
+            self.n_decode_launches += 1
+            toks = sample_logits(logits, self._gen,
+                                 self.ecfg.temperature).cpu().numpy()
+
+        done = 0
+        tron = self.trace.enabled
+        for i in decoding:
+            st = self.slots[i]
+            st.generated += 1
+            st.last_token = int(toks[i])
+            if tron:
+                self.trace.emit(now, tr.DECODE_STEP,
+                                req_id=st.req.req_id, rid=self.trace_rid,
+                                n=st.generated)
+            if st.generated >= st.target:       # oracle EOS
+                self._retire(i, now)
+                done += 1
+        self.step_count += 1
+        self.busy_steps += 1
+        if tron:
+            self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
+                            name="queue_depth",
+                            value=self.sched.queue_depth())
+            self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
+                            name="active_slots",
+                            value=len(self.active_slots()))
+            if self.ecfg.paged:
+                self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
+                                name="kv_free_pages",
+                                value=self.alloc.free_pages)
+        return done
+
+    def _decode_paged(self, tokens: np.ndarray,
+                      decoding: List[int]) -> np.ndarray:
+        """The paged decode iteration: build the page tables (inactive
+        slots on the scratch page), run one batched-kernel step, extend
+        each decoding slot's ledger. Returns the sampled tokens [n]."""
         sids = [i if (self.slots[i].req is not None
                       and not self.slots[i].pending_prefill) else None
                 for i in range(self.ecfg.n_slots)]
@@ -468,33 +555,7 @@ class ServingEngine:
                 # private) but wired for partial-page layouts.
                 self.pool.k[:, new] = self.pool.k[:, old]
                 self.pool.v[:, new] = self.pool.v[:, old]
-
-        done = 0
-        tron = self.trace.enabled
-        for i in decoding:
-            st = self.slots[i]
-            st.generated += 1
-            st.last_token = int(toks[i])
-            if tron:
-                self.trace.emit(now, tr.DECODE_STEP,
-                                req_id=st.req.req_id, rid=self.trace_rid,
-                                n=st.generated)
-            if st.generated >= st.target:       # oracle EOS
-                self._retire(i, now)
-                done += 1
-        self.step_count += 1
-        self.busy_steps += 1
-        if tron:
-            self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
-                            name="queue_depth",
-                            value=self.sched.queue_depth())
-            self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
-                            name="active_slots",
-                            value=len(self.active_slots()))
-            self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
-                            name="kv_free_pages",
-                            value=self.alloc.free_pages)
-        return done
+        return toks
 
     def run_until_drained(self, *, max_steps: int = 100_000,
                           dt: float = 1.0) -> RunMetrics:

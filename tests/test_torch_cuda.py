@@ -17,7 +17,8 @@ import os
 import pytest
 import torch
 
-from repro_torch.kernels import chunked_prefill, ops, paged_attention
+from repro_torch.kernels import (chunked_prefill, flash_attention, ops,
+                                 paged_attention)
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
@@ -88,4 +89,48 @@ def test_prefill_kernel_matches_plain(cuda, B, H, Hk, D, P, pps, C, dtype):
                                          impl="reference")
     torch.cuda.synchronize()
     assert chunked_prefill.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Lq,Lk,H,Hk,D,kw", [
+    (2, 40, 40, 3, 1, 24, dict()),                          # smoke smollm
+    (1, 256, 256, 9, 3, 64, dict()),                        # the engine's
+    (1, 256, 256, 32, 8, 80, dict(window=64, prefix_len=16)),  # h2o-danube
+    (1, 16, 200, 8, 2, 256, dict(logit_softcap=30.0)),      # > 48 KB smem
+    (2, 1, 200, 9, 3, 64, dict(window=64)),                 # Lq 1
+])
+def test_flash_kernel_matches_plain(cuda, B, Lq, Lk, H, Hk, D, kw, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(B, Lq, H, D, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(B, Lk, Hk, D, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(B, Lk, Hk, D, generator=gen, device=cuda).to(dtype)
+    before = flash_attention.launches
+    got = ops.attention(q, k, v, impl="cuda", **kw)
+    want = ops.attention(q, k, v, impl="reference", **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hk,D,P,pps", [
+    (3, 3, 1, 24, 8, 12),        # smoke smollm
+    (8, 9, 3, 64, 16, 32),       # full-width smollm
+])
+def test_paged_decode_kernel_matches_plain(cuda, B, H, Hk, D, P, pps, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    k, v, table = _scene(gen, cuda, B, Hk, D, P, pps, dtype)
+    q = torch.randn(B, H, D, generator=gen, device=cuda).to(dtype)
+    lens = [0] + [(11 + 29 * b) % (P * pps) + 1 for b in range(1, B)]
+    sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    poisoned = table.clone()
+    for b, n in enumerate(lens):
+        poisoned[b, -(-n // P):] = k.shape[0] * 13 + b
+    before = paged_attention.paged_decode_launches
+    got = ops.paged_decode_attention(q, k, v, poisoned, sl, impl="cuda")
+    want = ops.paged_decode_attention(q, k, v, table, sl, impl="reference")
+    torch.cuda.synchronize()
+    assert paged_attention.paged_decode_launches == before + 1
+    assert torch.all(got[0] == 0)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])

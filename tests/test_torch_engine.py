@@ -4,8 +4,14 @@
   on the same weights (bridged through numpy) serve the same seeded
   requests, stepped together. After every step each slot holds the same
   last token; at the end completion order, TTFT/completion stamps,
-  chunk logs, launch counts and prefix-cache counters agree. Arms:
-  chunk budget {None, 8} x prefix cache {off, on}.
+  chunk logs, launch counts and prefix-cache counters agree. Paged
+  arms: chunk budget {None, 8} x prefix cache {off, on}. Slot-ring
+  arms: chunk {None, 8} on smollm-135m; h2o-danube-1.8b (window 16)
+  with buckets 16 and 32, which runs the ring roll and the saturating
+  per-slot position (ROADMAP C); an int8-KV arm. The slot-ring arms
+  also compare every slot's cache depth after every step.
+* Paged vs slot-ring in the port: same completions and observed
+  lengths, and the page allocator drains.
 * Scheduler: the port's copy of ``DriftScheduler`` dispatches the same
   order and learns the same bias as ``repro.core``'s on one plan.
 * Isolation: importing the port loads no ``jax`` and no ``repro``.
@@ -41,6 +47,12 @@ CFG_T = smoke_config("smollm-135m").replace(dtype="float32")
 PARAMS_J = jax_transformer.init(CFG_J, jax.random.PRNGKey(0))
 PARAMS_T = params_from_numpy(
     CFG_T, jax.tree_util.tree_map(np.asarray, PARAMS_J), device="cpu")
+DANUBE_J = jax_smoke_config("h2o-danube-1.8b").replace(dtype="float32")
+DANUBE_T = smoke_config("h2o-danube-1.8b").replace(dtype="float32")
+DANUBE_PARAMS_J = jax_transformer.init(DANUBE_J, jax.random.PRNGKey(0))
+DANUBE_PARAMS_T = params_from_numpy(
+    DANUBE_T, jax.tree_util.tree_map(np.asarray, DANUBE_PARAMS_J),
+    device="cpu")
 
 
 def _plans(n, seed, **kw):
@@ -101,6 +113,75 @@ def test_engines_emit_the_same_tokens_in_lockstep(chunk, prefix):
         te.prefix_tree.total_pages() if prefix else 0) == te.alloc.n_pages
 
 
+@pytest.mark.parametrize("arch,chunk,buckets,kv", [
+    ("smollm-135m", None, (32, 64), "bfloat16"),
+    ("smollm-135m", 8, (32, 64), "bfloat16"),
+    ("h2o-danube-1.8b", None, (16, 32), "bfloat16"),  # roll + saturation
+    ("smollm-135m", 8, (16, 32), "int8"),
+])
+def test_slot_ring_engines_emit_the_same_tokens_in_lockstep(arch, chunk,
+                                                            buckets, kv):
+    cfg_j, cfg_t, pj, pt = ((CFG_J, CFG_T, PARAMS_J, PARAMS_T)
+                            if arch == "smollm-135m" else
+                            (DANUBE_J, DANUBE_T, DANUBE_PARAMS_J,
+                             DANUBE_PARAMS_T))
+    cfg_j, cfg_t = cfg_j.replace(kv_dtype=kv), cfg_t.replace(kv_dtype=kv)
+    kw = dict(n_slots=3, max_len=96, prompt_buckets=buckets,
+              chunk_prefill_tokens=chunk)
+    js, ts = JaxScheduler("fifo"), DriftScheduler("fifo")
+    je = JaxEngine(cfg_j, pj, js, JaxEngineConfig(**kw))
+    te = ServingEngine(cfg_t, pt, ts, EngineConfig(**kw), device="cpu")
+    jr, tr = _plans(8, seed=3, max_tokens=12)
+    for i, (a, b) in enumerate(zip(jr, tr)):
+        js.submit(a, 1e-6 * i)
+        ts.submit(b, 1e-6 * i)
+    now = 0.0
+    while js.queue_depth() or je.active_slots():
+        assert now < 500, "engines failed to drain"
+        je.step(now)
+        te.step(now)
+        assert [s.last_token for s in te.slots] == \
+            [s.last_token for s in je.slots], f"step {now}"
+        assert te.active_slots() == je.active_slots()
+        assert te.cache["lens"].tolist() == \
+            np.asarray(je.cache["lens"]).tolist(), f"step {now}"
+        now += 1.0
+    assert not ts.queue_depth() and not te.active_slots()
+    assert len(ts.completed) == len(tr)
+    assert _record(tr, ts) == _record(jr, js)
+    assert te.step_count == je.step_count
+    assert te.n_prefill_launches == je.n_prefill_launches == 0
+    assert te.cache["k"].dtype == (torch.int8 if kv == "int8"
+                                   else torch.float32)
+    if arch == "h2o-danube-1.8b":
+        # the ring is window-sized; a full ring's depth saturates at S
+        assert te.cache["k"].shape[2] == 16
+        assert max(te.cache["lens"].tolist()) == 16
+
+
+def test_paged_engine_matches_slot_ring_completions():
+    """The port's paged and slot-ring engines: same scheduler behaviour,
+    same observed lengths, and the allocator fully drains."""
+
+    def run(paged):
+        sched = DriftScheduler("fifo")
+        eng = ServingEngine(CFG_T, PARAMS_T, sched,
+                            EngineConfig(n_slots=3, max_len=96,
+                                         prompt_buckets=(16,), paged=paged,
+                                         page_size=8), device="cpu")
+        _, reqs = _plans(8, seed=3, max_tokens=24)
+        for i, r in enumerate(reqs):
+            sched.submit(r, 1e-6 * i)
+        return eng, sched, eng.run_until_drained(max_steps=5000)
+
+    eng_p, sched_p, m_p = run(paged=True)
+    eng_c, sched_c, m_c = run(paged=False)
+    assert m_p.n_completed == m_c.n_completed == 8
+    assert sorted(r.observed_output_tokens for r in sched_p.completed) == \
+        sorted(r.observed_output_tokens for r in sched_c.completed)
+    assert eng_p.alloc.free_pages == eng_p.alloc.n_pages
+
+
 def test_schedulers_dispatch_the_same_order_and_learn_the_same_bias():
     jr, tr = _plans(40, seed=5, max_tokens=256)
     out = []
@@ -136,8 +217,8 @@ def test_tokenize_full_vocab_legacy_layout():
 def test_engine_refuses_what_later_slices_port():
     sched = DriftScheduler("fifo")
     with pytest.raises(NotImplementedError, match="later slice"):
-        ServingEngine(CFG_T, PARAMS_T, sched, EngineConfig(paged=False),
-                      device="cpu")
+        ServingEngine(CFG_T.replace(family="ssm"), PARAMS_T, sched,
+                      EngineConfig(paged=False), device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         ServingEngine(CFG_T.replace(family="vlm"), PARAMS_T, sched,
                       EngineConfig(paged=True), device="cpu")

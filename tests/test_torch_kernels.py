@@ -7,7 +7,10 @@ JAX side runs the Pallas kernels in interpret mode on the CPU, as
 CUDA kernels are held against it on the card by ``test_torch_cuda.py``
 and ``chip_smoke.py``). Sweeps mirror ``tests/test_kernels.py``: GQA
 groups, chunk x cached prefix, softcap, the ``max_pages`` trim and
-poisoned page-table tails.
+poisoned page-table tails; for flash attention causal, sliding window,
+prefix-LM, softcap, queries aligned to the end of longer keys and
+ragged key lengths; for per-sequence paged decode poisoned tails and an
+empty sequence.
 
 Tolerances: float32 ``atol=rtol=1e-5`` (same math, summation order
 differs); bfloat16 ``atol=rtol=2e-2`` (outputs round to bf16, 8 mantissa
@@ -21,7 +24,11 @@ import torch
 
 from repro.kernels import batched_paged_decode_attention as jax_decode
 from repro.kernels import chunked_prefill_attention as jax_prefill
-from repro_torch.kernels import chunked_prefill, ops, paged_attention, ref
+from repro.kernels import flash_attention as jax_flash
+from repro.kernels import paged_decode_attention as jax_paged
+from repro.kernels import ref as jax_ref
+from repro_torch.kernels import (chunked_prefill, flash_attention, ops,
+                                 paged_attention, ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -166,6 +173,108 @@ def test_chunked_prefill_rows_past_kv_len_are_zero():
     assert torch.all(out[0, 3:] == 0) and torch.all(out[0, :3] != 0)
 
 
+def _qkv(rng, B, Lq, Lk, H, Hk, D, dtype):
+    q = rng.standard_normal((B, Lq, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, Lk, Hk, D), dtype=np.float32)
+    v = rng.standard_normal((B, Lk, Hk, D), dtype=np.float32)
+    return [_both(a, dtype) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Lq,Lk,H,Hk,D,kw", [
+    (2, 40, 40, 4, 4, 16, dict()),                       # MHA, causal
+    (1, 40, 40, 6, 2, 24, dict(window=16)),              # window bites
+    (1, 37, 37, 9, 3, 24, dict(prefix_len=8)),           # prefix-LM
+    (2, 24, 24, 8, 2, 80, dict(logit_softcap=30.0)),     # D 80, group 4
+    (1, 1, 37, 3, 1, 16, dict()),                        # Lq 1 < Lk
+    (2, 5, 37, 4, 1, 16, dict(window=16, prefix_len=8)), # Lq 5 < Lk
+    (1, 19, 19, 3, 3, 24, dict(causal=False)),           # non-causal
+])
+def test_attention_matches_pallas(B, Lq, Lk, H, Hk, D, kw, dtype):
+    rng = np.random.default_rng(20)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, B, Lq, Lk, H, Hk, D, dtype)
+    want = jax_flash(qj, kj, vj, block_q=16, block_kv=16, interpret=True,
+                     **{"causal": True, **kw})
+    before = flash_attention.launches
+    got = ops.attention(qt, kt, vt, impl="reference", **kw)
+    auto = ops.attention(qt, kt, vt, **kw)        # CPU: the plain version
+    assert flash_attention.launches == before
+    assert got.dtype == qt.dtype and got.shape == (B, Lq, H, D)
+    _close(got, want, dtype)
+    assert torch.equal(auto, got)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(window=12), dict(prefix_len=8),
+                                dict(causal=False, logit_softcap=5.0)])
+def test_attention_plain_versions_agree(kw):
+    """The port's ``mha_naive`` matches the JAX one, and its chunked
+    online-softmax form matches its naive form at block sizes that do
+    and do not divide ``Lk``."""
+    rng = np.random.default_rng(21)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, 2, 9, 29, 6, 2, 16, "float32")
+    naive = ref.mha_naive(qt, kt, vt, **kw)
+    _close(naive, jax_ref.mha_naive(qj, kj, vj, **kw), "float32")
+    for block in (8, 29, 512):
+        torch.testing.assert_close(
+            ref.flash_attention_chunked(qt, kt, vt, block_kv=block, **kw),
+            naive, atol=1e-5, rtol=1e-5)
+
+
+def test_attention_refuses_more_queries_than_keys():
+    q = torch.zeros(1, 5, 2, 8)
+    k = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="Lq must be <= Lk"):
+        flash_attention.flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hk,D,page,pps,softcap", [
+    (3, 4, 2, 32, 8, 6, None),     # GQA group 2
+    (4, 9, 3, 64, 16, 4, 30.0),    # the full-width smollm head layout
+])
+def test_paged_decode_matches_pallas(B, H, Hk, D, page, pps, softcap, dtype):
+    """Per-sequence paged decode with a seq_len 0 row and poisoned
+    table tails (the port reads them never; the JAX index map clamps)."""
+    rng = np.random.default_rng(22)
+    k, v, table = _page_scene(rng, B, Hk, D, page, pps)
+    q = rng.standard_normal((B, H, D), dtype=np.float32)
+    seq_lens = [0] + [(9 + 11 * b) % (page * pps) + 1 for b in range(1, B)]
+    poisoned = table.copy()
+    for b, n in enumerate(seq_lens):
+        poisoned[b, -(-n // page):] = k.shape[0] * 13 + b
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    (ptj, ptt), (lj, lt) = _ints(poisoned), _ints(seq_lens)
+    want = jax_paged(qj, kj, vj, ptj, lj, logit_softcap=softcap,
+                     interpret=True)
+    before = paged_attention.paged_decode_launches
+    got = ops.paged_decode_attention(qt, kt, vt, ptt, lt,
+                                     logit_softcap=softcap, impl="reference")
+    auto = ops.paged_decode_attention(qt, kt, vt, ptt, lt,
+                                      logit_softcap=softcap)
+    assert paged_attention.paged_decode_launches == before
+    assert got.dtype == qt.dtype and got.shape == (B, H, D)
+    assert torch.all(got[0] == 0)
+    _close(got, want, dtype)
+    assert torch.equal(auto, got)
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (5, None),
+                                            (12, 30.0)])
+def test_decode_attention_window_matches_jax_ref(window, softcap):
+    rng = np.random.default_rng(23)
+    B, S, H, Hk, D = 3, 16, 6, 2, 24
+    q = rng.standard_normal((B, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, S, Hk, D), dtype=np.float32)
+    v = rng.standard_normal((B, S, Hk, D), dtype=np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, "float32") for a in (q, k, v))
+    lj, lt = _ints([1, 9, 16])
+    want = jax_ref.decode_attention_ref(qj, kj, vj, lj, window=window,
+                                        logit_softcap=softcap)
+    got = ops.decode_attention(qt, kt, vt, lt, window=window,
+                               logit_softcap=softcap)
+    _close(got, want, "float32")
+
+
 def test_ops_refuse_cuda_impl_for_cpu_tensors():
     """No silent fallback: impl='cuda' on a CPU tensor raises."""
     rng = np.random.default_rng(17)
@@ -180,6 +289,12 @@ def test_ops_refuse_cuda_impl_for_cpu_tensors():
         ops.chunked_prefill_attention(
             torch.zeros(1, 2, 2, 8), kt, vt, pt, torch.tensor([0]),
             torch.tensor([2]), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_decode_attention(torch.zeros(1, 2, 8), kt, vt, pt,
+                                   torch.tensor([3]), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.attention(torch.zeros(1, 2, 2, 8), torch.zeros(1, 2, 1, 8),
+                      torch.zeros(1, 2, 1, 8), impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         ops.chunked_prefill_attention(
             torch.zeros(1, 2, 2, 8), kt, vt, pt, torch.tensor([0]),

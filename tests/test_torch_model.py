@@ -1,11 +1,14 @@
-"""The port's dense layers and paged transformer path against JAX.
+"""The port's dense layers and both transformer serving paths against
+JAX.
 
 Weights come from the JAX ``transformer.init(PRNGKey(0))`` on
-``smoke_config("smollm-135m")`` and reach the port through
+``smoke_config("smollm-135m")`` (and ``"h2o-danube-1.8b"``, window 16,
+for the sliding-window ring) and reach the port through
 ``bridge.params_from_numpy``; other inputs are made with numpy from a
-seed. JAX runs on the CPU with its paged kernels through the jnp
-oracles (``impl='auto'`` off-TPU); the port runs on the CPU with the
-plain kernel versions.
+seed. JAX runs on the CPU with its kernels through the jnp oracles
+(``impl='auto'`` off-TPU); the port runs on the CPU with the plain
+kernel versions. The slot-ring tests compare the whole caches (K, V,
+lens and the int8 scales), not only the logits.
 
 Tolerances: float32 ``atol=rtol=1e-5`` on layers and 1e-4 on logits
 (two layers of the same math summed in another order); bfloat16
@@ -35,15 +38,15 @@ TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
 LAYER_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
-def _cfgs(dtype):
-    return (jax_smoke_config("smollm-135m").replace(dtype=dtype),
-            smoke_config("smollm-135m").replace(dtype=dtype))
+def _cfgs(dtype, arch="smollm-135m"):
+    return (jax_smoke_config(arch).replace(dtype=dtype),
+            smoke_config(arch).replace(dtype=dtype))
 
 
 @functools.lru_cache(maxsize=None)
-def _params(dtype):
+def _params(dtype, arch="smollm-135m"):
     """(jax cfg, port cfg, jax params, port params); read-only in tests."""
-    cfg_j, cfg_t = _cfgs(dtype)
+    cfg_j, cfg_t = _cfgs(dtype, arch)
     pj = jtr.init(cfg_j, jax.random.PRNGKey(0))
     pt = params_from_numpy(cfg_t, jax.tree_util.tree_map(np.asarray, pj),
                            device="cpu")
@@ -225,6 +228,132 @@ def test_prefill_then_decode_greedy_tokens_match_jax():
             torch.from_numpy(lens))
         tok_j, tok_t = int(jnp.argmax(lj[0])), int(sample_logits(lt, None)[0])
         assert tok_j == tok_t, n
+
+
+def _close_cache(cache_t, cache_j, dtype):
+    """Every leaf of the port's contiguous cache against JAX's."""
+    assert set(cache_t) == set(cache_j)
+    np.testing.assert_array_equal(cache_t["lens"].numpy(),
+                                  np.asarray(cache_j["lens"]))
+    for name in ("k", "v"):
+        got, want = cache_t[name], cache_j[name]
+        assert tuple(got.shape) == want.shape
+        if got.dtype == torch.int8:
+            st = cache_t[name + "_scale"].numpy()
+            sj = np.asarray(cache_j[name + "_scale"])
+            np.testing.assert_allclose(st, sj, **TOL[dtype])
+            codes_t = got.numpy().astype(np.int32)
+            codes_j = np.asarray(want, np.int32)
+            # dequantised values within the dtype's tolerance plus one
+            # code step: inputs that agree to the tolerance may round
+            # to neighbouring codes
+            deq_t, deq_j = codes_t * st[..., None], codes_j * sj[..., None]
+            slack = (TOL[dtype]["atol"] + TOL[dtype]["rtol"] * np.abs(deq_j)
+                     + sj[..., None])
+            assert (np.abs(deq_t - deq_j) <= slack).all(), name
+            if dtype == "float32":   # f32 inputs agree to ~1e-6
+                assert (codes_t == codes_j).mean() > 0.99, name
+        else:
+            np.testing.assert_allclose(_t(got), _np(want), **TOL[dtype])
+
+
+def _clone_cache(cache):
+    return {k: v.clone() for k, v in cache.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("arch,L,max_len,steps", [
+    ("smollm-135m", 10, 32, 4),       # L < S, no window
+    ("h2o-danube-1.8b", 24, 32, 4),   # L > S = 16: the ring roll
+    ("h2o-danube-1.8b", 12, 32, 8),   # decode crosses the window
+])
+def test_prefill_decode_step_match_jax(arch, L, max_len, steps, kv_dtype,
+                                       dtype):
+    cfg_j, cfg_t, pj, pt = _params(dtype, arch)
+    cfg_j = cfg_j.replace(kv_dtype=kv_dtype)
+    cfg_t = cfg_t.replace(kv_dtype=kv_dtype)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg_t.vocab, size=(2, L + steps)).astype(np.int32)
+    lj, cache_j = jtr.prefill(cfg_j, pj, jnp.asarray(toks[:, :L]),
+                              max_len=max_len)
+    lt, cache_t = ttr.prefill(cfg_t, pt, torch.from_numpy(toks[:, :L]),
+                              max_len=max_len)
+    np.testing.assert_allclose(_t(lt), _np(lj), **TOL[dtype])
+    _close_cache(cache_t, cache_j, dtype)
+    for i in range(steps):
+        pos = L + i
+        lj, cache_j = jtr.decode_step(cfg_j, pj, cache_j,
+                                      jnp.asarray(toks[:, pos]),
+                                      jnp.asarray(pos, jnp.int32))
+        lt, cache_t = ttr.decode_step(cfg_t, pt, cache_t,
+                                      torch.from_numpy(toks[:, pos]), pos)
+        np.testing.assert_allclose(_t(lt), _np(lj), **TOL[dtype],
+                                   err_msg=f"decode step {i}")
+    _close_cache(cache_t, cache_j, dtype)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "h2o-danube-1.8b"])
+def test_per_slot_positions(arch):
+    """A per-slot ``pos`` vector of equal depths gives the scalar-pos
+    step, and slots at different depths match JAX's vector-pos step
+    (ring slot ``pos % S`` each)."""
+    cfg_j, cfg_t, pj, pt = _params("float32", arch)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg_t.vocab, size=(2, 21)).astype(np.int32)
+    _, cache_j = jtr.prefill(cfg_j, pj, jnp.asarray(toks[:, :20]), max_len=32)
+    _, cache_t = ttr.prefill(cfg_t, pt, torch.from_numpy(toks[:, :20]),
+                             max_len=32)
+    nxt = torch.from_numpy(toks[:, 20])
+    l_scalar, c_scalar = ttr.decode_step(cfg_t, pt, _clone_cache(cache_t),
+                                         nxt, 20)
+    l_vec, c_vec = ttr.decode_step(cfg_t, pt, _clone_cache(cache_t), nxt,
+                                   torch.full((2,), 20, dtype=torch.int32))
+    torch.testing.assert_close(l_vec, l_scalar, atol=1e-5, rtol=1e-5)
+    for name in ("k", "v", "lens"):
+        torch.testing.assert_close(c_vec[name], c_scalar[name])
+    pos = np.array([20, 13], np.int32)
+    lj, cache_j = jtr.decode_step(cfg_j, pj, cache_j, jnp.asarray(toks[:, 20]),
+                                  jnp.asarray(pos))
+    lt, cache_t = ttr.decode_step(cfg_t, pt, cache_t, nxt,
+                                  torch.from_numpy(pos))
+    np.testing.assert_allclose(_t(lt), _np(lj), **TOL["float32"])
+    _close_cache(cache_t, cache_j, "float32")
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "h2o-danube-1.8b"])
+def test_init_cache_matches_jax(arch):
+    """Same shapes, dtypes and zeros; int8 holds 1/2 + 4/(2 hd) of the
+    bf16 bytes, as in the JAX cache."""
+    cfg_j, cfg_t = _cfgs("bfloat16", arch)
+    for kv in ("bfloat16", "int8"):
+        cj = jtr.init_cache(cfg_j.replace(kv_dtype=kv), 3, 40)
+        ct = ttr.init_cache(cfg_t.replace(kv_dtype=kv), 3, 40, device="cpu")
+        assert set(ct) == set(cj)
+        for name, t in ct.items():
+            assert tuple(t.shape) == cj[name].shape, name
+            assert str(t.dtype).split(".")[-1] == str(cj[name].dtype), name
+            assert not t.any()
+    c16 = ttr.init_cache(cfg_t, 2, 64, device="cpu")
+    c8 = ttr.init_cache(cfg_t.replace(kv_dtype="int8"), 2, 64, device="cpu")
+    b16 = sum(c16[k].nbytes for k in ("k", "v"))
+    b8 = sum(c8[k].nbytes for k in ("k", "v", "k_scale", "v_scale"))
+    assert b8 == (0.5 + 4 / (2 * cfg_t.d_head)) * b16
+    assert ttr.cache_size(cfg_t, 40) == (
+        16 if cfg_t.sliding_window else 40) == jtr.cache_size(cfg_j, 40)
+
+
+def test_quantize_kv_matches_jax():
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((4, 8, 32), dtype=np.float32) * 3
+    qj, sj = jl.quantize_kv(jnp.asarray(x))
+    qt, st = tl.quantize_kv(torch.from_numpy(x))
+    assert qt.dtype == torch.int8
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), **LAYER_TOL)
+    np.testing.assert_allclose(tl.dequantize_kv(qt, st).numpy(),
+                               np.asarray(jl.dequantize_kv(qj, sj)),
+                               **LAYER_TOL)
 
 
 def test_other_families_raise():
