@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/H100 port: builds the CUDA kernels,
-holds each against its plain PyTorch version, times them, and serves
-full-width smollm-135m through the paged and the slot-ring engines on
-one GPU.
+holds each against its plain PyTorch version, times them, serves
+full-width smollm-135m through the paged and the slot-ring engines, and
+trains full-width mamba2-2.7b and smollm-135m, on one GPU.
 
     python3 chip_smoke.py
 
@@ -17,12 +17,19 @@ first that fails:
                  and off, poisoned page-table tails, chunk 1/16/128 at
                  q_offset > 0; flash attention at the engine's prefill
                  buckets, full-width h2o-danube (D 80, window, prefix),
-                 D 256 and Lq 1/16 against Lk 200; per-sequence paged
-                 decode on the batched kernel's shapes;
-4. kernel_times  each kernel at the engine's full-width shapes: its time,
-                 the plain version's, a library call's (SDPA over the
-                 gathered K/V, a yardstick the port never calls) and the
-                 bound (least time for the bytes and FLOPs it needs);
+                 D 256, Lq 1/16 against Lk 200 and the dense trainer's
+                 batch 8 x 512; per-sequence paged
+                 decode on the batched kernel's shapes; the SSD scan at
+                 the JAX test shapes, a ragged L, G 2, L < chunk, and
+                 mamba2-2.7b's (L 2048 and 1000) and zamba2's shapes;
+                 gradients through the flash and SSD autograd Functions
+                 at the trainers' shapes against plain autograd;
+4. kernel_times  each kernel at its main path's full-width shapes: its
+                 time, the plain version's, a library call's where one
+                 PyTorch call computes the same function (SDPA over the
+                 gathered K/V, a yardstick the port never calls; none
+                 for the SSD scan) and the bound (least time for the
+                 bytes and FLOPs it needs);
 5. engine        full-width smollm-135m, bf16, 24 requests through
                  DriftScheduler("sjf") and the paged engine, with the
                  kernels' launch counts checked against the iterations;
@@ -39,10 +46,26 @@ first that fails:
 9. engine_slot_profile  the slot-ring engine under torch.profiler;
 10. engine_slot_check  one full-width 256-token prefill (flash kernel)
                  and one decode step from its cache, against the plain
-                 path, within its bf16-vs-float32 deviation.
+                 path, within its bf16-vs-float32 deviation;
+11. train        mamba2-2.7b at full width and depth (64 layers), bf16,
+                 through the training launcher's code: 6 AdamW steps on
+                 batch 2 x 2048 synthetic tokens with per-layer remat;
+                 SSD launches exactly 2 x 64 x 6 and no attention kernel;
+12. train_profile  one more step of it under torch.profiler;
+13. train_check  one step's loss, grad norm and gradients of w_x,
+                 out_proj, A_log and the embedding at full width, depth
+                 cut to 8 layers: the kernel path against the plain path,
+                 within the plain path's own bf16-vs-float32 deviation;
+14. train_dense  smollm-135m at full width, batch 8 x 512, 4 steps;
+                 flash-attention launches exactly 2 x 30 x 4;
+15. train_dense_check  one step of it at full depth (30 layers): loss,
+                 grad norm and the gradients of wq, wk, wv and the
+                 embedding, kernel path against plain path as train_check,
+                 but gated in float32 (through 30 bf16 layers the two
+                 bf16 paths decorrelate; their deviation is printed).
 
-Each engine phase sets every kernel's launch count to 0 just before it
-serves and reads the counts just after.
+Each engine and train phase sets every kernel's launch count to 0 just
+before it runs and reads the counts just after.
 
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -72,6 +95,12 @@ BF16_FLOPS_PER_S = 989e12
 # rounded from nearly equal float32 values, so at most about one bf16
 # ulp (2**-8 relative) apart.
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
+# The SSD scan's float32 output at a position sums up to a chunk of
+# products and the decayed state, terms as large as the call's largest
+# outputs: its rounding error scales with max |y| of the call, not with
+# the element, so its float32 atol is 1e-5 * max |y| (the bf16 tolerance
+# covers one bf16 ulp as for the other kernels).
+SSD_F32_ATOL_PER_MAX = 1e-5
 # Logits of the full-width model through 30 layers in bf16: the kernels
 # may move them by no more than bf16 itself does, i.e. the largest
 # difference between the plain path in bf16 and the same path in
@@ -131,12 +160,24 @@ def flash_inputs(gen, B, Lq, Lk, H, Hk, D, dtype, dev):
     return q, k, v
 
 
+def ssd_inputs(gen, B, L, H, G, P, N, dtype, dev):
+    """x, b, c ~ 0.5 N(0, 1) and log decays a = -0.1 |N(0, 1)|, as the
+    JAX package's SSD tests draw them."""
+    x = torch.randn(B, L, H, P, generator=gen, device=dev) * 0.5
+    a = -torch.randn(B, L, H, generator=gen, device=dev).abs() * 0.1
+    b = torch.randn(B, L, G, N, generator=gen, device=dev) * 0.5
+    c = torch.randn(B, L, G, N, generator=gen, device=dev) * 0.5
+    return [t.to(dtype) for t in (x, a, b, c)]
+
+
 def max_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
 
-def within(got, want, dtype):
+def within(got, want, dtype, ssd=False):
     atol, rtol = TOL[dtype]
+    if ssd and dtype == torch.float32:
+        atol = max(atol, SSD_F32_ATOL_PER_MAX * want.float().abs().max().item())
     return bool(((got.float() - want.float()).abs()
                  <= atol + rtol * want.float().abs()).all())
 
@@ -267,6 +308,7 @@ def kernel_check_phase(dev):
         (1, 64, 64, 8, 2, 256, {}),                       # > 48 KB of smem
         (1, 1, 200, 9, 3, 64, {}),                        # Lq < Lk, ragged
         (1, 16, 200, 9, 3, 64, dict(window=64)),
+        (8, 512, 512, 9, 3, 64, {}),                      # the dense trainer's
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for B, Lq, Lk, H, Hk, D, kw in shapes_flash:
@@ -285,9 +327,64 @@ def kernel_check_phase(dev):
                     fail(f"flash kernel vs plain: {dtype} B{B} Lq{Lq} Lk{Lk} "
                          f"H{H} Hk{Hk} D{D} {kw} softcap={softcap}: max abs "
                          f"err {err} > tol {TOL[dtype]}")
+    shapes_ssd = [  # B, L, H, G, P, N, chunk
+        (1, 128, 4, 1, 16, 16, 32),       # the JAX test shapes
+        (2, 256, 8, 2, 32, 64, 64),
+        (1, 64, 2, 1, 64, 128, 64),
+        (2, 100, 8, 1, 16, 16, 32),       # smoke mamba2, ragged last chunk
+        (2, 200, 8, 2, 16, 32, 64),       # G 2, ragged
+        (2, 40, 4, 1, 16, 16, 64),        # L < chunk
+        (2, 2048, 80, 1, 64, 128, 256),   # mamba2-2.7b, the train shape
+        (1, 1000, 80, 1, 64, 128, 256),   # mamba2-2.7b, ragged
+        (1, 512, 64, 1, 64, 64, 256),     # zamba2
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, L, H, G, P, N, Q in shapes_ssd:
+            x, a, b, c = ssd_inputs(gen, B, L, H, G, P, N, dtype, dev)
+            got = ops.ssd(x, a, b, c, chunk=Q, impl="cuda")
+            want = ops.ssd(x, a, b, c, chunk=Q, impl="reference")
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            key = ("ssd", str(dtype).split(".")[-1])
+            worst[key] = max(worst.get(key, 0.0), err)
+            n_cases += 1
+            if not within(got, want, dtype, ssd=True):
+                fail(f"ssd kernel vs plain: {dtype} B{B} L{L} H{H} G{G} P{P} "
+                     f"N{N} chunk {Q}: max abs err {err} > tol {TOL[dtype]} "
+                     f"(f32 atol {SSD_F32_ATOL_PER_MAX} x max |y|)")
+    # the autograd Functions at the trainers' shapes, bf16: the backward
+    # is the plain version's, recomputed from the same saved inputs, so
+    # the gradients through the kernel equal plain autograd's
+    grad_cases = [
+        ("flash", lambda *t, impl: ops.attention(*t, impl=impl),
+         flash_inputs(gen, 8, 512, 512, 9, 3, 64, torch.bfloat16, dev)),
+        ("ssd", lambda *t, impl: ops.ssd(*t, chunk=256, impl=impl),
+         ssd_inputs(gen, 2, 2048, 80, 1, 64, 128, torch.bfloat16, dev)),
+    ]
+    for name, fn, inputs in grad_cases:
+        r = torch.randn(inputs[0].shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+        grads = {}
+        for impl in ("cuda", "reference"):
+            ins = [t.clone().requires_grad_() for t in inputs]
+            out = fn(*ins, impl=impl)
+            if out.grad_fn is None:
+                fail(f"{name} kernel output has no grad_fn (impl={impl})")
+            grads[impl] = torch.autograd.grad(out, ins, r)
+        torch.cuda.synchronize()
+        err = max(max_err(g, w) for g, w in zip(grads["cuda"],
+                                                 grads["reference"]))
+        key = (f"{name}_grad", "bfloat16")
+        worst[key] = max(worst.get(key, 0.0), err)
+        n_cases += 1
+        if not all(within(g, w, torch.bfloat16)
+                   for g, w in zip(grads["cuda"], grads["reference"])):
+            fail(f"{name} gradients through the kernel vs plain autograd at "
+                 f"the trainer's shape: max abs err {err}")
     phase("kernel_check", cases=n_cases,
           max_abs_err={f"{k}/{d}": e for (k, d), e in worst.items()},
-          tol={str(d).split(".")[-1]: t for d, t in TOL.items()})
+          tol={str(d).split(".")[-1]: t for d, t in TOL.items()},
+          ssd_f32_atol_per_max_abs=SSD_F32_ATOL_PER_MAX)
 
 
 def time_ms(fn, flush):
@@ -379,6 +476,24 @@ def flash_bound(q, k, causal=True, window=None, prefix_len=0):
     return n_bytes, 4 * B * H * D * int(mask.sum())
 
 
+def ssd_bound(B, L, H, G, P, N, chunk, elem):
+    """Bytes of x, a, b, c and y once each, and the least matrix-product
+    FLOPs the function needs on these chunks of q tokens: the causal
+    half of C B^T once per (batch, group) (q (q + 1) N), the decayed
+    scores times X per (batch, head) over the same half (q (q + 1) P),
+    and per head C . state^T for every chunk but the first (its state is
+    zero) and the state update for every chunk but the last (no final
+    state is returned), 2 q N P each. The elementwise decays (about
+    q^2 / 2 exponentials per head and chunk) add under 1% and are left
+    out."""
+    n_bytes = (2 * B * L * H * P + B * L * H + 2 * B * L * G * N) * elem
+    qs = [min(chunk, L - i) for i in range(0, L, chunk)]
+    flops = (B * G * sum(q * (q + 1) * N for q in qs)
+             + B * H * sum(q * (q + 1) * P for q in qs)
+             + B * H * 2 * N * P * (sum(qs[1:]) + sum(qs[:-1])))
+    return n_bytes, flops
+
+
 def sdpa_paged_inputs(q, k, v, table, lens):
     """Gathered contiguous K/V and the length mask, for the per-sequence
     decode kernel's function."""
@@ -391,11 +506,12 @@ def sdpa_paged_inputs(q, k, v, table, lens):
             vg.transpose(1, 2).contiguous(), mask[:, None, None])
 
 
-def flash_timing_scene(dev, L):
-    """The slot-ring engine's prefill attention at full width: one
-    ``L``-token bucket, 9 q over 3 kv heads, D 64, causal, bf16."""
+def flash_timing_scene(dev, B, L):
+    """Full-width smollm-135m attention: ``B`` sequences of ``L`` tokens
+    (the slot-ring engine's one-prompt bucket, or the dense trainer's
+    batch), 9 q over 3 kv heads, D 64, causal, bf16."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    return flash_inputs(gen, 1, L, L, 9, 3, 64, torch.bfloat16, dev)
+    return flash_inputs(gen, B, L, L, 9, 3, 64, torch.bfloat16, dev)
 
 
 def sdpa_decode_inputs(q, k, v, table, lens, kn, vn):
@@ -509,23 +625,25 @@ def kernel_times_phase(dev):
 
     # the slot-ring engine run prefills 64-token buckets only (its
     # prompts are all <= 64 tokens): that is the main path's shape and
-    # the table's row; the largest bucket, 256, is timed beside it
+    # the table's row; the largest bucket, 256, and the dense trainer's
+    # batch 8 x 512 are timed beside it
     extra = []
-    for L in (64, 256):
-        q, k, v = flash_timing_scene(dev, L)
+    for B, L, path in ((1, 64, "slot-ring engine (prefill)"),
+                       (1, 256, "slot-ring engine (prefill)"),
+                       (8, 512, "trainer (dense forward)")):
+        q, k, v = flash_timing_scene(dev, B, L)
         got = ops.attention(q, k, v, impl="cuda")
         want = ops.attention(q, k, v, impl="reference")
         err = max_err(got, want)
         if not within(got, want, torch.bfloat16):
-            fail(f"flash kernel vs plain at engine shapes (L {L}): max abs "
-                 f"err {err}")
+            fail(f"flash kernel vs plain at B {B} L {L}: max abs err {err}")
         sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         n_bytes, flops = flash_bound(q, k)
         (rows if L == 64 else extra).append(dict(
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:124",
-            max_abs_err=err, tokens=L,
+            max_abs_err=err, batch=B, tokens=L, path=path,
             ms=time_ms(lambda: ops.attention(q, k, v, impl="cuda"), flush),
             plain_ms=time_ms(lambda: ops.attention(q, k, v, impl="reference"),
                              flush),
@@ -533,12 +651,34 @@ def kernel_times_phase(dev):
                                             enable_gqa=True), flush),
             bytes=n_bytes, flops=flops))
 
+    # the trainer's SSD call on mamba2-2.7b: batch 2 x 2048 tokens, 80
+    # heads of 64, state 128, one group, chunk 256, bf16
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shape = (2, 2048, 80, 1, 64, 128)
+    x, a, b, c = ssd_inputs(gen, *shape, torch.bfloat16, dev)
+    got = ops.ssd(x, a, b, c, chunk=256, impl="cuda")
+    want = ops.ssd(x, a, b, c, chunk=256, impl="reference")
+    err = max_err(got, want)
+    if not within(got, want, torch.bfloat16, ssd=True):
+        fail(f"ssd kernel vs plain at the train shape: max abs err {err}")
+    n_bytes, flops = ssd_bound(*shape, 256, x.element_size())
+    rows.append(dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:88",
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.ssd(x, a, b, c, chunk=256, impl="cuda"), flush),
+        plain_ms=time_ms(lambda: ops.ssd(x, a, b, c, chunk=256,
+                                         impl="reference"), flush),
+        library_ms=None, bytes=n_bytes, flops=flops))
+    del x, a, b, c, got, want
+
     path = {"batched_paged_decode_attention": "paged engine (decode)",
             "chunked_prefill_attention": "paged engine (prefill chunks)",
             "paged_decode_attention": "none (no engine path)",
-            "flash_attention": "slot-ring engine (prefill)"}
+            "ssd_scan": "trainer (mamba2 forward)"}
     for r in rows + extra:
-        r["path"] = path[r["name"]]
+        r.setdefault("path", path.get(r["name"]))
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / BF16_FLOPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
@@ -560,12 +700,14 @@ SLOT_ENGINE = dict(paged=False, n_slots=8, max_len=512,
 
 def kernel_counters():
     """Each kernel's name -> (module, attribute) of its launch count."""
-    from repro_torch.kernels import chunked_prefill, flash_attention, paged_attention
+    from repro_torch.kernels import (chunked_prefill, flash_attention,
+                                     paged_attention, ssd_scan)
     return {
         "batched_paged_decode_attention": (paged_attention, "launches"),
         "chunked_prefill_attention": (chunked_prefill, "launches"),
         "paged_decode_attention": (paged_attention, "paged_decode_launches"),
         "flash_attention": (flash_attention, "launches"),
+        "ssd_scan": (ssd_scan, "launches"),
     }
 
 
@@ -642,8 +784,9 @@ def engine_phase(dev):
             != cfg.n_layers * eng.n_prefill_launches:
         fail(f"prefill launches {launches} != {cfg.n_layers} x "
              f"{eng.n_prefill_launches} prefill chunks")
-    if launches["paged_decode_attention"] or launches["flash_attention"]:
-        fail(f"the paged engine launched a slot-ring kernel: {launches}")
+    if launches["paged_decode_attention"] or launches["flash_attention"] \
+            or launches["ssd_scan"]:
+        fail(f"the paged engine launched a kernel of another path: {launches}")
     if eng.prefix_cache_stats()["hits"] <= 0:
         fail("no prefix-cache hit in the engine run")
     return cfg, params, eng, launches
@@ -676,9 +819,9 @@ def engine_slot_phase(cfg, params, dev):
     if launches["flash_attention"] != cfg.n_layers * prefills:
         fail(f"flash launches {launches} != {cfg.n_layers} x {prefills} "
              "prefills")
-    paged = {k: n for k, n in launches.items() if k != "flash_attention"}
-    if any(paged.values()):
-        fail(f"the slot-ring engine launched a paged kernel: {paged}")
+    others = {k: n for k, n in launches.items() if k != "flash_attention"}
+    if any(others.values()):
+        fail(f"the slot-ring engine launched a kernel of another path: {others}")
     return launches
 
 
@@ -699,29 +842,37 @@ def engine_profile_phase(cfg, params, dev, label, ecfg, steps=24, **gen_kw):
             eng.step(4.0 + i)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device-side events only (kernels, copies): a CPU op's own device
-    # time is the same kernels again
-    per_kernel = {}
+    profile_summary(label, prof, steps, wall_ms, "iteration")
+
+
+def profile_summary(label, prof, steps, wall_ms, unit, **fields):
+    """Device time per ``unit`` (iteration or step), its share of the
+    profiled wall time, and the top device items. Device-side events
+    only (kernels, copies): a CPU op's own device time is the same
+    kernels again."""
+    per_kernel = {}     # kernel name cut to 60 characters -> (us, count)
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
-        per_kernel[e.key] = (dev_us, e.count)
+        us, n = per_kernel.get(e.key[:60], (0.0, 0))
+        per_kernel[e.key[:60]] = (us + dev_us, n + e.count)
     device_ms = sum(us for us, _ in per_kernel.values()) / 1e3
     launches = sum(n for _, n in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
-    phase(label, iterations=steps,
-          profiled_wall_ms_per_iteration=wall_ms / steps,
-          device_ms_per_iteration=device_ms / steps,
-          device_busy_share=device_ms / wall_ms,
-          device_launches_per_iteration=launches / steps,
-          top_device_ms_per_iteration={
-              k[:60]: round(us / 1e3 / steps, 4) for k, (us, _) in top},
-          top_launches_per_iteration={
-              k[:60]: n / steps for k, (_, n) in top})
+    phase(label, **{
+        f"{unit}s": steps,
+        f"profiled_wall_ms_per_{unit}": wall_ms / steps,
+        f"device_ms_per_{unit}": device_ms / steps,
+        "device_busy_share": device_ms / wall_ms,
+        f"device_launches_per_{unit}": launches / steps,
+        f"top_device_ms_per_{unit}": {
+            k: round(us / 1e3 / steps, 4) for k, (us, _) in top},
+        f"top_launches_per_{unit}": {
+            k: n / steps for k, (_, n) in top}}, **fields)
     if device_ms <= 0:
-        fail(f"{label}: profiler saw no device time in the engine iterations")
+        fail(f"{label}: profiler saw no device time")
 
 
 def check_logits(label, kern, plain, plain32, **fields):
@@ -814,10 +965,203 @@ def engine_check_phase(cfg, params, eng, dev):
     check_logits("engine_check", kern, plain, plain32)
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(arch="mamba2-2.7b", batch=2, seq=2048, steps=6, lr=3e-4)
+TRAIN_CHECK_LAYERS = 8
+DENSE_TRAIN = dict(arch="smollm-135m", batch=8, seq=512, steps=4, lr=3e-4)
+
+
+def n_params(tree) -> int:
+    from repro_torch.distributed.optimizer import tree_leaves
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def run_steps(setup, n, dev):
+    """``n`` train steps through the launcher's code from step 0, with
+    every launch count set to 0 just before and read just after: (per
+    step (loss, grad norm, seconds), launches)."""
+    from repro_torch.launch.train import batch_on
+    params, opt_state, step_fn, ds = setup
+    batches = [batch_on(ds, s, dev) for s in range(n)]
+    log = []
+    reset_launches()
+    torch.cuda.synchronize()
+    for s in range(n):
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batches[s])
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # synchronises
+        log.append((loss, gnorm, time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return log, read_launches()
+
+
+def train_setup(spec, dev, **cfg_kw):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_dataset
+    from repro_torch.launch.train import build
+    cfg = get_config(spec["arch"]).replace(**cfg_kw)
+    params, _, opt_state, step_fn = build(cfg, steps=spec["steps"],
+                                          lr=spec["lr"], seed=0, device=dev)
+    ds = make_dataset("synthetic", cfg, spec["seq"], spec["batch"])
+    return cfg, (params, opt_state, step_fn, ds)
+
+
+def train_phase(dev):
+    """Full-width, full-depth mamba2-2.7b: 6 AdamW steps, remat on."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, setup = train_setup(TRAIN, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log, launches = run_steps(setup, TRAIN["steps"], dev)
+    secs = statistics.median(t for _, _, t in log[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    want = 2 * cfg.n_layers * TRAIN["steps"]
+    phase("train", arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+          params=n_params(setup[0]), param_count=cfg.param_count(),
+          batch=TRAIN["batch"], seq=TRAIN["seq"],
+          remat=True, init_s=init_s, loss=[l for l, _, _ in log],
+          grad_norm=[g for _, g, _ in log], step_s=[t for _, _, t in log],
+          median_step_s_2_to_6=secs, tokens_per_s=tokens / secs,
+          peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+          launches=launches, ssd_launches_expected=want)
+    if not all(math.isfinite(l) and math.isfinite(g) for l, g, _ in log):
+        fail(f"train: a loss or grad norm is not finite: {log}")
+    if launches["ssd_scan"] != want:
+        fail(f"train: {launches['ssd_scan']} SSD launches, want 2 x "
+             f"{cfg.n_layers} x {TRAIN['steps']} = {want}")
+    others = {k: n for k, n in launches.items() if k != "ssd_scan"}
+    if any(others.values()):
+        fail(f"train: an attention kernel ran in the SSM trainer: {others}")
+    return cfg, setup
+
+
+def train_profile_phase(setup, dev):
+    """One more step of the same trainer under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.train import batch_on
+    params, opt_state, step_fn, ds = setup
+    batch = batch_on(ds, TRAIN["steps"], dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    profile_summary("train_profile", prof, 1, wall_ms, "step")
+
+
+def train_check_phase(dev, label, spec, names, kernel, n_layers=None,
+                      gate="bfloat16"):
+    """Loss, grad norm and the gradients of the leaves ``names`` (name ->
+    path in the tree) of one step at full width, depth cut to
+    ``n_layers`` if given: the kernel path against the plain path, within
+    the plain path's bf16-vs-float32 deviation. ``kernel`` runs twice per
+    layer (forward and its recompute under remat).
+
+    ``gate`` is the dtype of the kernel-vs-plain comparison that must
+    hold. "bfloat16" compares the two bf16 paths. "float32" runs the
+    kernel path once more in float32 and compares it with the float32
+    plain path; the bf16 comparison is then printed only. That is for a
+    model deep enough that the two bf16 paths decorrelate: one bf16 ulp
+    of a kernel output changes later roundings everywhere, so the bf16
+    kernel path deviates from the bf16 plain path about as much as bf16
+    deviates from float32, and one such draw is no bound on another."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_dataset
+    from repro_torch.distributed.optimizer import global_norm, tree_leaves
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.registry import get_api
+    from repro_torch.models.steps import grads_of, loss_fn
+    full = get_config(spec["arch"])
+    cfg = full.replace(n_layers=n_layers or full.n_layers)
+    params = get_api(cfg).init(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    batch = batch_on(make_dataset("synthetic", cfg, spec["seq"],
+                                  spec["batch"]), 0, dev)
+
+    def run(impl, dtype):
+        p = params if dtype is None else _cast(params, dtype)
+        c = cfg if dtype is None else cfg.replace(dtype="float32")
+        for leaf in tree_leaves(p):
+            leaf.requires_grad_(True)
+        loss, _ = loss_fn(c, p, batch, remat=True, impl=impl)
+        grads = grads_of(loss, p)
+        out = {"loss": loss.detach().float(),
+               "grad_norm": global_norm(grads).float()}
+        for name, path in names.items():
+            g = grads
+            for key in path:
+                g = g[key]
+            out[name] = g.float()
+        return out
+
+    reset_launches()
+    kern = run("auto", None)
+    n_kernel = read_launches()[kernel]
+    plain, plain32 = run("reference", None), run("reference", torch.float32)
+    torch.cuda.synchronize()
+    if n_kernel != 2 * cfg.n_layers:
+        fail(f"{label}: {n_kernel} {kernel} launches for one "
+             f"{cfg.n_layers}-layer step with remat")
+    err = {k: max_err(kern[k], plain[k]) for k in kern}
+    tol = {k: max_err(plain[k], plain32[k]) for k in kern}
+    gated, extra = err, {}
+    if gate == "float32":
+        kern32 = run("auto", torch.float32)
+        gated = {k: max_err(kern32[k], plain32[k]) for k in kern}
+        extra = {"max_abs_err_kernel_vs_plain_f32": gated,
+                 "ratio_bf16_kernel_vs_plain_to_tol":
+                     {k: err[k] / tol[k] for k in kern if tol[k] > 0}}
+    phase(label, arch=cfg.name, n_layers=cfg.n_layers,
+          depth_cut_from=full.n_layers, batch=spec["batch"], seq=spec["seq"],
+          launches={kernel: n_kernel}, gated_on=gate, **extra,
+          loss={k: v["loss"].item() for k, v in
+                (("kernel", kern), ("plain", plain), ("plain_f32", plain32))},
+          grad_norm={k: v["grad_norm"].item() for k, v in
+                     (("kernel", kern), ("plain", plain),
+                      ("plain_f32", plain32))},
+          max_abs_err_kernel_vs_plain=err, tol_bf16_vs_f32_plain=tol,
+          grad_abs_max={k: plain[k].abs().max().item() for k in names})
+    bad = [k for k in kern if gated[k] > tol[k]]
+    if bad:
+        fail(f"{label}: kernel path off the plain path ({gate}) by more "
+             f"than bf16 itself in {bad}: {gated} vs {tol}")
+
+
+def train_dense_phase(dev):
+    """Full-width smollm-135m: 4 AdamW steps on batch 8 x 512, remat on;
+    the flash kernel runs twice per layer and step."""
+    cfg, setup = train_setup(DENSE_TRAIN, dev)
+    log, launches = run_steps(setup, DENSE_TRAIN["steps"], dev)
+    want = 2 * cfg.n_layers * DENSE_TRAIN["steps"]
+    secs = statistics.median(t for _, _, t in log[1:])
+    phase("train_dense", arch=cfg.name, n_layers=cfg.n_layers,
+          params=n_params(setup[0]), batch=DENSE_TRAIN["batch"],
+          seq=DENSE_TRAIN["seq"], loss=[l for l, _, _ in log],
+          grad_norm=[g for _, g, _ in log], step_s=[t for _, _, t in log],
+          median_step_s=secs,
+          tokens_per_s=DENSE_TRAIN["batch"] * DENSE_TRAIN["seq"] / secs,
+          launches=launches, flash_launches_expected=want)
+    if not all(math.isfinite(l) and math.isfinite(g) for l, g, _ in log):
+        fail(f"train_dense: a loss or grad norm is not finite: {log}")
+    if launches["flash_attention"] != want:
+        fail(f"train_dense: {launches['flash_attention']} flash launches, "
+             f"want 2 x {cfg.n_layers} x {DENSE_TRAIN['steps']} = {want}")
+    others = {k: n for k, n in launches.items() if k != "flash_attention"}
+    if any(others.values()):
+        fail(f"train_dense: a kernel of another path ran: {others}")
+    return launches
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype)
+    return tree.detach().to(dtype)
 
 
 def main() -> int:
@@ -842,13 +1186,35 @@ def main() -> int:
     slot_launches = engine_slot_phase(cfg, params, dev)
     engine_profile_phase(cfg, params, dev, "engine_slot_profile", SLOT_ENGINE)
     engine_slot_check_phase(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
 
-    # each kernel's launches on the engine run whose path it is on (the
-    # per-sequence paged decode is on no engine path: 0 in both)
+    _, setup = train_phase(dev)
+    train_launches = read_launches()
+    train_profile_phase(setup, dev)
+    del setup
+    torch.cuda.empty_cache()
+    train_check_phase(dev, "train_check", TRAIN, {
+        "w_x": ("layers", "ssm", "w_x"),
+        "out_proj": ("layers", "ssm", "out_proj"),
+        "A_log": ("layers", "ssm", "A_log"), "embed": ("embed", "table")},
+        "ssd_scan", n_layers=TRAIN_CHECK_LAYERS)
+    torch.cuda.empty_cache()
+    train_dense_phase(dev)
+    torch.cuda.empty_cache()
+    train_check_phase(dev, "train_dense_check", DENSE_TRAIN, {
+        "wq": ("layers", "attn", "wq"), "wk": ("layers", "attn", "wk"),
+        "wv": ("layers", "attn", "wv"), "embed": ("embed", "table")},
+        "flash_attention", gate="float32")
+
+    # each kernel's launches on the run whose path it is on: the engines'
+    # for the attention kernels (the per-sequence paged decode is on no
+    # engine path: 0 in both), the mamba2 trainer's for the SSD scan
     on_path = {"batched_paged_decode_attention": paged_launches,
                "chunked_prefill_attention": paged_launches,
                "paged_decode_attention": paged_launches,
-               "flash_attention": slot_launches}
+               "flash_attention": slot_launches,
+               "ssd_scan": train_launches}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in rows:

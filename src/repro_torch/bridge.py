@@ -1,7 +1,7 @@
 """Bridge from the JAX package's parameter tree to the port's params.
 
 The tests run both packages on the same weights: they build params with
-the JAX ``transformer.init``, turn every leaf into a numpy array
+the JAX ``init`` of a family, turn every leaf into a numpy array
 (``np.asarray``) and hand the tree here. This module imports no JAX.
 """
 
@@ -34,8 +34,10 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict,
                       dtype: Optional[torch.dtype] = None) -> Dict:
     """The JAX parameter tree (nested dicts of numpy arrays, layers
     stacked on a leading ``L`` axis) as the port's params, same keys and
-    layouts. ``dtype`` defaults to ``cfg.dtype``."""
-    dtype = dtype or getattr(torch, cfg.dtype)
+    layouts. Each leaf keeps its own dtype unless ``dtype`` is given: a
+    mamba2 tree in bfloat16 keeps its float32 ``A_log``, ``D`` and
+    ``dt_bias``, as the JAX init makes them. ``cfg`` is the config the
+    tree was made for."""
 
     def convert(node):
         if isinstance(node, dict):

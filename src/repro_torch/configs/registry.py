@@ -1,6 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launchers. Lists only the archs the port serves so far; the rest of the
-JAX package's catalog joins as their model families are ported."""
+launchers. Lists the archs whose family the port runs: the dense ones
+(trained and served) and mamba2-2.7b (trained; its serving comes with
+ROADMAP.md A8). The rest of the JAX package's catalog joins as their
+model families are ported."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from ..models.config import ModelConfig
 _MODULES: Dict[str, str] = {
     "smollm-135m": "smollm_135m",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 ARCHS: List[str] = list(_MODULES)

@@ -44,6 +44,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_attention": {
         "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_F, _F, _I, _P],
     },
+    "ssd_scan": {
+        "ssd_scan_launch": [_P] * 5 + [_I] * 8 + [_P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -9,6 +9,13 @@ The models call these — never the kernels or refs directly. Dispatch
 * ``'cuda'``: the kernel; raises for a tensor that is not on CUDA.
 * ``'reference'``: the plain version on any device (the oracle the
   kernels are held against on the card).
+
+The kernels have no backward. On the training path (``attention``,
+``ssd``) a CUDA tensor goes through a ``torch.autograd.Function`` whose
+forward launches the kernel and whose backward differentiates the plain
+version, recomputed from the saved inputs (the JAX package has no
+backward kernel either: autodiff runs through its plain forms). CPU
+tensors take the plain version, which autograd differentiates itself.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from .paged_attention import (
     batched_paged_decode_attention as _batched_paged_cuda,
     paged_decode_attention as _paged_cuda,
 )
+from .ssd_scan import ssd_scan as _ssd_cuda
 
 Impl = str  # 'auto' | 'cuda' | 'reference'
 IMPLS = ("auto", "cuda", "reference")
@@ -35,6 +43,54 @@ def _use_kernel(impl: Impl, x: torch.Tensor) -> bool:
     if impl == "cuda" and x.device.type != "cuda":
         raise ValueError(f"impl='cuda' needs CUDA tensors, got {x.device}")
     return impl != "reference"
+
+
+def _grad_of_plain(plain, inputs, needs, grad_out):
+    """Gradients of ``plain(*inputs)`` for the inputs in ``needs``,
+    recomputed on detached copies: the backward of a kernel's forward."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        out = plain(*leaves)
+        wanted = [t for t, n in zip(leaves, needs) if n]
+        got = iter(torch.autograd.grad(out, wanted, grad_out))
+    return tuple(next(got) if n else None for n in needs)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash kernel (B4). Backward: autograd of
+    ``ref.flash_attention_chunked`` on the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_softcap, prefix_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window,
+                      logit_softcap=logit_softcap, prefix_len=prefix_len)
+        return _flash_cuda(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = _grad_of_plain(
+            lambda q, k, v: ref.flash_attention_chunked(q, k, v, **ctx.kw),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], grad_out)
+        return (*grads, None, None, None, None)
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward: the SSD scan kernel (B5). Backward: autograd of
+    ``ref.ssd_chunked`` on the saved x, a, b, c."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, c, chunk):
+        ctx.save_for_backward(x, a, b, c)
+        ctx.chunk = chunk
+        return _ssd_cuda(x, a, b, c, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = _grad_of_plain(
+            lambda x, a, b, c: ref.ssd_chunked(x, a, b, c, chunk=ctx.chunk),
+            ctx.saved_tensors, ctx.needs_input_grad[:4], grad_out)
+        return (*grads, None)
 
 
 def attention(
@@ -49,14 +105,30 @@ def attention(
     impl: Impl = "auto",
 ) -> torch.Tensor:
     """Batched GQA attention, queries aligned to the end of the keys:
-    the prefill path's flash attention (see
-    ``flash_attention.flash_attention``)."""
-    if _use_kernel(impl, q):
-        return _flash_cuda(q, k, v, causal=causal, window=window,
-                           logit_softcap=logit_softcap, prefix_len=prefix_len)
+    the prefill and training paths' flash attention (see
+    ``flash_attention.flash_attention``); differentiable."""
+    if _use_kernel(impl, q) and q.device.type != "cpu":
+        return _FlashAttention.apply(q, k, v, causal, window, logit_softcap,
+                                     prefix_len)
     return ref.flash_attention_chunked(
         q, k, v, causal=causal, window=window, logit_softcap=logit_softcap,
         prefix_len=prefix_len)
+
+
+def ssd(
+    x: torch.Tensor,            # [B, L, H, P] dt-scaled
+    a: torch.Tensor,            # [B, L, H]    log decays
+    b: torch.Tensor,            # [B, L, G, N]
+    c: torch.Tensor,            # [B, L, G, N]
+    *,
+    chunk: int = 256,
+    impl: Impl = "auto",
+) -> torch.Tensor:
+    """Mamba-2 SSD chunked scan (see ``ssd_scan.ssd_scan``);
+    differentiable."""
+    if _use_kernel(impl, x) and x.device.type != "cpu":
+        return _SSDScan.apply(x, a, b, c, chunk)
+    return ref.ssd_chunked(x, a, b, c, chunk=chunk)
 
 
 def decode_attention(

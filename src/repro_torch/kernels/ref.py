@@ -1,15 +1,15 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
 Each function is the semantic ground truth its CUDA kernel is held
 against, ported from the JAX package's ``kernels/ref.py``: dense GQA
 attention (``mha_naive``, ``flash_attention_chunked``), contiguous-cache
-decode, and the paged forms, which gather each sequence's pages into a
+decode, the paged forms, which gather each sequence's pages into a
 contiguous view and then run textbook masked softmax attention in
-float32. Rows whose mask is empty have zero mass and come out as zeros
+float32, and the Mamba-2 SSD scan (``ssd_naive``, ``ssd_chunked``). Rows whose mask is empty have zero mass and come out as zeros
 (``l == 0 -> 1``), except in ``mha_naive``, which keeps the textbook
 softmax's NaN there as the JAX oracle does. The wrappers in
-``flash_attention.py``, ``paged_attention.py`` and
-``chunked_prefill.py`` run these for tensors that lie on the CPU.
+``flash_attention.py``, ``paged_attention.py``, ``chunked_prefill.py``
+and ``ssd_scan.py`` run these for tensors that lie on the CPU.
 
 Page-table entries past a sequence's last page are allocator garbage.
 The gathers below clamp every id into the pool, as JAX's gather does
@@ -243,3 +243,105 @@ def chunked_prefill_attention_ref(
     p = e / torch.where(l == 0.0, torch.ones_like(l), l)
     out = torch.einsum("bhgqs,bshd->bqhgd", p, v)
     return out.reshape(B, chunk, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality)
+# ---------------------------------------------------------------------------
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """Segment sum: out[..., i, j] = sum_{j < t <= i} a[..., t], and
+    -inf above the diagonal (the log-decay matrix of the intra-chunk
+    term)."""
+    T = a.shape[-1]
+    csum = torch.cumsum(a, dim=-1)
+    out = csum[..., :, None] - csum[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=a.device))
+    return out.masked_fill(~mask, float("-inf"))
+
+
+def ssd_naive(
+    x: torch.Tensor,            # [B, L, H, P] dt-scaled
+    a: torch.Tensor,            # [B, L, H]    log decay per step (<= 0)
+    b: torch.Tensor,            # [B, L, G, N]
+    c: torch.Tensor,            # [B, L, G, N]
+) -> torch.Tensor:
+    """Quadratic "attention form" of SSD: y_i = sum_{j<=i} C_i . B_j
+    exp(sum_{j<t<=i} a_t) x_j. Oracle for small L."""
+    H, G = x.shape[2], b.shape[2]
+    rep = H // G
+    bf = b.float().repeat_interleave(rep, dim=2)          # [B, L, H, N]
+    cf = c.float().repeat_interleave(rep, dim=2)
+    lmat = torch.exp(_segsum(a.float().transpose(1, 2)))  # [B, H, L, L]
+    scores = torch.einsum("blhn,bshn->bhls", cf, bf) * lmat
+    y = torch.einsum("bhls,bshp->blhp", scores, x.float())
+    return y.to(x.dtype)
+
+
+def ssd_chunked(
+    x: torch.Tensor,            # [B, L, H, P]
+    a: torch.Tensor,            # [B, L, H]
+    b: torch.Tensor,            # [B, L, G, N]
+    c: torch.Tensor,            # [B, L, G, N]
+    *,
+    chunk: int = 256,
+    return_final_state: bool = False,
+):
+    """SSD chunked scan (the Mamba-2 paper's ssd_minimal): intra-chunk
+    quadratic term plus the inter-chunk recurrent state carry, float32
+    inside, y in x's dtype; with ``return_final_state`` also the final
+    [B, H, P, N] float32 state.
+
+    A sequence that does not divide the chunk is zero-padded: pad tokens
+    have x = 0 (no state injection) and a = 0 (decay exp(0) = 1, state
+    unchanged), so outputs at valid positions and the carried state are
+    exact. ``chunk > L`` acts as ``chunk = L``."""
+    Bsz, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    rep = H // G
+    chunk = max(1, min(chunk, L))
+    pad = (-L) % chunk
+    L_orig = L
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, 0, 0, pad))
+        c = torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad))
+        L = L + pad
+    nc = L // chunk
+
+    xf = x.float().reshape(Bsz, nc, chunk, H, P)
+    af = a.float().reshape(Bsz, nc, chunk, H)
+    bf = b.float().reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+    cf = c.float().reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+
+    a_t = af.permute(0, 1, 3, 2)                          # [B,nc,H,Q]
+    a_cs = torch.cumsum(a_t, dim=-1)                      # inclusive cumsum
+    lmat = torch.exp(_segsum(a_t))                        # [B,nc,H,Q,Q]
+
+    # 1) intra-chunk (diagonal blocks)
+    scores = torch.einsum("bnqhk,bnshk->bnhqs", cf, bf) * lmat
+    y_diag = torch.einsum("bnhqs,bnshp->bnqhp", scores, xf)
+
+    # 2) per-chunk final states: sum_i exp(a_cs[-1] - a_cs[i]) B_i x_i^T
+    decay_states = torch.exp(a_cs[..., -1:] - a_cs)       # [B,nc,H,Q]
+    states = torch.einsum("bnhq,bnqhk,bnqhp->bnhpk", decay_states, bf, xf)
+
+    # 3) inter-chunk recurrence over the chunk states, emitting the
+    #    state from before each chunk
+    chunk_decay = torch.exp(a_cs[..., -1])                # [B,nc,H]
+    h = x.new_zeros((Bsz, H, P, N), dtype=torch.float32)
+    h_prev = []
+    for n in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, n, :, None, None] + states[:, n]
+    h_prev = torch.stack(h_prev, dim=1)                   # [B,nc,H,P,N]
+
+    # 4) inter-chunk contribution: y_i += C_i . (exp(a_cs[i]) h_prev)
+    in_decay = torch.exp(a_cs)                            # [B,nc,H,Q]
+    y_off = torch.einsum("bnqhk,bnhpk,bnhq->bnqhp", cf, h_prev, in_decay)
+
+    y = (y_diag + y_off).reshape(Bsz, L, H, P)[:, :L_orig].to(x.dtype)
+    if return_final_state:
+        return y, h
+    return y

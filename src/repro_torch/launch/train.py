@@ -1,0 +1,109 @@
+"""Training launcher of the port: AdamW steps on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+        --preset full --steps 6 --batch 2 --seq 2048
+
+Counterpart of the JAX package's ``launch/train.py``, same flags and log
+line, plus ``--device`` (default ``cuda``; ``--device cpu`` runs the
+kernels' plain versions). Random init from ``--seed`` on a generator on
+the run's device; per-layer remat on. ``--preset smoke`` runs the
+arch's reduced config, ``full`` its published widths. Checkpoint /
+restart with ``--checkpoint-dir`` and ``--resume``. The JAX launcher's
+``--compile-only`` (a TPU-mesh dry run) comes with ROADMAP.md A10.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..configs import ARCHS, get_config, smoke_config
+from ..data.pipeline import make_dataset
+from ..distributed.checkpoint import CheckpointManager
+from ..distributed.optimizer import Optimizer, OptimizerConfig
+from ..models.config import ModelConfig
+from ..models.layers import resolve_device
+from ..models.registry import get_api
+from ..models.steps import make_train_step
+
+
+def build(cfg: ModelConfig, *, steps: int, lr: float, seed: int,
+          device: torch.device, impl: str = "auto", remat: bool = True):
+    """(params, optimizer, opt_state, train_step) as the launcher makes
+    them: random init on a generator on ``device``, AdamW with 10 warmup
+    steps and cosine decay over ``max(steps, 100)``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = get_api(cfg).init(cfg, gen, device=device)
+    opt = Optimizer(OptimizerConfig(lr=lr, warmup_steps=10,
+                                    decay_steps=max(steps, 100)))
+    return (params, opt, opt.init(params),
+            make_train_step(cfg, opt, remat=remat, impl=impl))
+
+
+def batch_on(ds, step: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in ds.batch(step).items()}
+
+
+def main(argv: Optional[list] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="smollm-135m", choices=ARCHS)
+    ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--dataset", default="synthetic",
+                    choices=["synthetic", "corpus"])
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.preset == "smoke" \
+        else get_config(args.arch)
+    print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
+          f"dataset={args.dataset} steps={args.steps}")
+
+    params, _, opt_state, step_fn = build(
+        cfg, steps=args.steps, lr=args.lr, seed=args.seed, device=device)
+    ds = make_dataset(args.dataset, cfg, args.seq, args.batch)
+
+    start = 0
+    ckpt = None
+    if args.checkpoint_dir:
+        ckpt = CheckpointManager(args.checkpoint_dir)
+        if args.resume and ckpt.latest_step() is not None:
+            start, state, _ = ckpt.restore({"params": params, "opt": opt_state})
+            params, opt_state = state["params"], state["opt"]
+            print(f"resumed from step {start}")
+
+    t0 = time.time()
+    for step in range(start, args.steps):
+        params, opt_state, m = step_fn(params, opt_state,
+                                       batch_on(ds, step, device))
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss={float(m['loss']):.4f} "
+                  f"gnorm={float(m['grad_norm']):.3f} "
+                  f"lr={float(m['lr']):.2e} "
+                  f"({(time.time()-t0)/(step-start+1):.2f}s/step)",
+                  flush=True)
+        if ckpt and (step + 1) % args.checkpoint_every == 0:
+            ckpt.save(step + 1, {"params": params, "opt": opt_state})
+    if ckpt:
+        ckpt.save(args.steps, {"params": params, "opt": opt_state})
+        ckpt.wait()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,2 +1,3 @@
-"""Model code of the port: the dense decoder-only transformer's serving
-paths (slot-ring and paged)."""
+"""Model code of the port: the dense decoder-only transformer (the
+training forward and the slot-ring and paged serving paths) and Mamba-2
+(the training forward)."""

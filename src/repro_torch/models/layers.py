@@ -1,9 +1,10 @@
 """Dense model building blocks of the port (plain functions on tensors,
 params as dicts).
 
-The subset of the JAX package's ``models/layers.py`` the dense serving
-paths run (paged and slot-ring, with the int8 KV cache's quantisation),
-with its conventions and layouts kept:
+The subset of the JAX package's ``models/layers.py`` that the dense
+serving paths (paged and slot-ring, with the int8 KV cache's
+quantisation) and the dense and SSM training forwards run, with its
+conventions and layouts kept:
 
 * attention weights are head-split: wq [d, H, hd], wk/wv [d, Hk, hd],
   wo [H, hd, d]; MLP w1/w3 [d, ff], w2 [ff, d]; embedding table [V, d];
@@ -13,10 +14,11 @@ with its conventions and layouts kept:
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .config import ModelConfig
@@ -34,6 +36,33 @@ def resolve_device(device: "str | torch.device") -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available; pass device='cpu' to run on the CPU")
     return device
+
+
+def unstack_layers(layers: Dict) -> List[Dict]:
+    """Per-layer views of a params tree stacked on a leading ``L`` axis,
+    split once with ``torch.unbind``. Its backward is one ``stack`` per
+    leaf; indexing ``w[i]`` in every layer would instead allocate a
+    zero-filled gradient of the whole stacked leaf per layer."""
+    parts = {k: unstack_layers(v) if isinstance(v, dict) else torch.unbind(v, 0)
+             for k, v in layers.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
+def run_layers(body, x: torch.Tensor, layers: Dict, *,
+               remat: bool) -> torch.Tensor:
+    """``x = body(lp, x)`` for each layer's params ``lp`` of the stacked
+    tree ``layers`` (the JAX ``lax.scan`` over layers). With ``remat``
+    each layer's activations are recomputed in the backward
+    (``torch.utils.checkpoint``, as ``jax.checkpoint`` with
+    ``nothing_saveable``), so its kernels run twice per step."""
+    for lp in unstack_layers(layers):
+        if remat:
+            x = checkpoint(lambda h, lp: body(lp, h), x, lp,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = body(lp, x)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +97,33 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm (biased variance), computed in float32."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def init_norm(cfg: ModelConfig, device) -> Dict:
+    """``cfg.norm``'s params over ``d_model``: layernorm scale 1 and
+    bias 0, or the rmsnorm scale 0 (applied as ``1 + scale``)."""
+    kw = dict(dtype=dt(cfg), device=device)
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones((cfg.d_model,), **kw),
+                "bias": torch.zeros((cfg.d_model,), **kw)}
+    return {"scale": torch.zeros((cfg.d_model,), **kw)}
+
+
+def apply_norm(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
+    return rms_norm(x, p["scale"])
 
 
 def rope_freqs(head_dim: int, theta: float,

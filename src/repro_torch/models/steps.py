@@ -1,15 +1,88 @@
-"""Serving step helpers of the port: token sampling.
+"""Train and serve step functions of the port.
 
-Port of ``sample_logits`` from the JAX package's ``models/steps.py``
-(the training and dry-run step functions move with later slices).
+Port of the JAX package's ``models/steps.py``: ``cross_entropy``,
+``loss_fn`` and ``make_train_step`` (the trainer's unit: loss, gradients
+and one optimizer update, with per-layer remat), and ``sample_logits``
+(the serving engine's sampler). The prefill / serve steps of the JAX
+dry-run come with the multi-device work (ROADMAP.md, A10).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..distributed.optimizer import tree_leaves, tree_map
+from .config import ModelConfig
+from .registry import get_api
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32. logits [B, L, V] (any
+    dtype), labels [B, L] ints; ``mask`` weights the positions."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)                          # [B, L]
+    true_logit = lf.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - true_logit
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.mean()
+
+
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict, *,
+            remat: bool = True, impl: str = "auto"
+            ) -> Tuple[torch.Tensor, Dict]:
+    """(total loss, {"loss", "ce", "aux"}) of one batch (``tokens``,
+    ``labels`` and optional ``loss_mask`` tensors)."""
+    logits, aux = get_api(cfg).forward(cfg, params, batch, remat=remat,
+                                       impl=impl)
+    labels = batch["labels"]
+    L = labels.shape[1]
+    if logits.shape[1] != L:       # a prefix before the tokens: score the tail
+        logits = logits[:, -L:]
+    ce = cross_entropy(logits, labels, batch.get("loss_mask"))
+    total = ce + cfg.router_aux_coef * aux
+    return total, {"loss": total, "ce": ce, "aux": aux}
+
+
+def grads_of(loss: torch.Tensor, params: Dict) -> Dict:
+    """d loss / d params as a tree like ``params`` (zeros for a leaf the
+    loss does not reach, as ``jax.grad`` gives)."""
+    grads = iter(torch.autograd.grad(loss, tree_leaves(params),
+                                     allow_unused=True, materialize_grads=True))
+    return tree_map(lambda _: next(grads), params)
+
+
+def make_train_step(cfg: ModelConfig, optimizer, *, remat: bool = True,
+                    impl: str = "auto") -> Callable:
+    """Returns ``train_step(params, opt_state, batch) -> (params,
+    opt_state, metrics)``. ``optimizer`` is a
+    ``repro_torch.distributed.optimizer.Optimizer``; it updates the
+    params and its state in place and the step returns the same trees.
+    Every param leaf is set to require grad. Metrics are 0-dim tensors
+    on the params' device (``loss``, ``ce``, ``aux``, ``grad_norm``,
+    ``lr``, ``step``)."""
+
+    def train_step(params, opt_state, batch):
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        loss, metrics = loss_fn(cfg, params, batch, remat=remat, impl=impl)
+        grads = grads_of(loss, params)
+        params, opt_state, opt_metrics = optimizer.update(
+            params, grads, opt_state)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 def sample_logits(logits: torch.Tensor, gen: Optional[torch.Generator],
                   temperature: float = 0.0) -> torch.Tensor:

@@ -1,14 +1,16 @@
-"""Dense decoder-only transformer: init and both serving paths.
+"""Dense decoder-only transformer: init, the training forward and both
+serving paths.
 
 Port of the JAX package's ``models/transformer.py`` for the dense
-family: :func:`init`; the slot-ring path (:func:`cache_size`,
-:func:`init_cache`, :func:`prefill`, :func:`decode_step`, with the
-sliding-window ring and the int8 KV cache); and the paged path
-(:func:`decode_step_paged`, :func:`prefill_chunk_paged`). Per-layer
-params stay stacked on a leading ``L`` axis (the JAX layout, so the
-tests compare like with like); the layer ``lax.scan`` becomes a Python
-loop over that axis. The full-sequence ``forward`` comes with the
-training slice (ROADMAP.md, queue A).
+family: :func:`init`; the full-sequence :func:`forward` the trainer
+runs (one flash-attention call per layer); the slot-ring path
+(:func:`cache_size`, :func:`init_cache`, :func:`prefill`,
+:func:`decode_step`, with the sliding-window ring and the int8 KV
+cache); and the paged path (:func:`decode_step_paged`,
+:func:`prefill_chunk_paged`). Per-layer params stay stacked on a leading
+``L`` axis (the JAX layout, so the tests compare like with like); the
+layer ``lax.scan`` becomes a Python loop over that axis. The vlm prefix
+and MoE layers come with a later slice (ROADMAP.md, A7).
 
 The caches are updated in place: the contiguous cache
 ``{"k": [L, B, S, Hk, hd], "v": ..., "lens": [B]}`` (plus ``k_scale`` /
@@ -22,6 +24,7 @@ order.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -34,8 +37,8 @@ from .config import ModelConfig
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"the port serves the dense family only; {cfg.family!r} is a "
-            "later slice (ROADMAP.md, queue A)")
+            f"the port's transformer runs the dense family only; "
+            f"{cfg.family!r} is a later slice (ROADMAP.md, queue A)")
 
 
 def init(cfg: ModelConfig, gen: torch.Generator,
@@ -45,13 +48,9 @@ def init(cfg: ModelConfig, gen: torch.Generator,
     _check_family(cfg)
     device = nn.resolve_device(device)
     d = cfg.d_model
-
-    def norm():
-        return {"scale": torch.zeros((d,), dtype=nn.dt(cfg), device=device)}
-
-    per_layer = [{"ln1": norm(),
+    per_layer = [{"ln1": nn.init_norm(cfg, device),
                   "attn": nn.init_attention(gen, cfg, device),
-                  "ln2": norm(),
+                  "ln2": nn.init_norm(cfg, device),
                   "mlp": nn.init_mlp(gen, cfg, device)}
                  for _ in range(cfg.n_layers)]
     stacked = {group: {name: torch.stack([lp[group][name] for lp in per_layer])
@@ -61,7 +60,7 @@ def init(cfg: ModelConfig, gen: torch.Generator,
         "embed": {"table": nn.embed_init(gen, (cfg.vocab, d), nn.dt(cfg),
                                          device)},
         "layers": stacked,
-        "final_norm": norm(),
+        "final_norm": nn.init_norm(cfg, device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"table": nn.embed_init(gen, (cfg.vocab, d),
@@ -77,6 +76,42 @@ def layer_params(params: Dict, i: int) -> Dict:
 
 def _head(cfg: ModelConfig, params: Dict) -> Dict:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def _layer_fwd(cfg: ModelConfig, lp: Dict, h: torch.Tensor, *,
+               impl: str) -> torch.Tensor:
+    """One decoder layer over the full sequence, h [B, L, d]."""
+    B, L, _ = h.shape
+    attn_in = nn.apply_norm(cfg, lp["ln1"], h)
+    q, k, v = nn.qkv_project(lp["attn"], attn_in)       # [B, L, H/Hk, hd]
+    if cfg.pos == "rope":
+        positions = torch.arange(L, device=h.device)[None].expand(B, L)
+        q = nn.apply_rope(q, positions, cfg.rope_theta)
+        k = nn.apply_rope(k, positions, cfg.rope_theta)
+    attn = ops.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                         logit_softcap=cfg.logit_softcap, impl=impl)
+    h = h + nn.merge_heads(attn, lp["attn"]["wo"])
+    return h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
+
+
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+            remat: bool = False, impl: str = "auto",
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: (logits [B, L, V], aux 0.0). Attention is
+    one flash-attention call per layer (causal, ``cfg.sliding_window``),
+    differentiable through ``ops.attention``. With ``remat`` the kernel
+    runs twice per layer and step (see ``layers.run_layers``)."""
+    _check_family(cfg)
+    x = nn.embed(cfg, params["embed"], tokens)
+    x = nn.run_layers(functools.partial(_layer_fwd, cfg, impl=impl), x,
+                      params["layers"], remat=remat)
+    x = nn.apply_norm(cfg, params["final_norm"], x)
+    logits = nn.unembed(cfg, _head(cfg, params), x)
+    return logits, torch.zeros((), device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +163,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        attn_in = nn.rms_norm(h, lp["ln1"]["scale"])
+        attn_in = nn.apply_norm(cfg, lp["ln1"], h)
         q, k, v = nn.qkv_project(lp["attn"], attn_in)   # [B, L, H/Hk, hd]
         if cfg.pos == "rope":
             q = nn.apply_rope(q, positions, cfg.rope_theta)
@@ -136,7 +171,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         attn = ops.attention(q, k, v, causal=True, window=cfg.sliding_window,
                              logit_softcap=cfg.logit_softcap, impl=impl)
         h = h + nn.merge_heads(attn, lp["attn"]["wo"])
-        h = h + nn.mlp_block(cfg, lp["mlp"], nn.rms_norm(h, lp["ln2"]["scale"]))
+        h = h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
         k_keep = k[:, -S:].to(nn.dt(cfg))
         v_keep = v[:, -S:].to(nn.dt(cfg))
         if cfg.sliding_window is not None and L > S:
@@ -145,7 +180,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             v_keep = torch.roll(v_keep, shift, dims=1)
         ks.append(k_keep)
         vs.append(v_keep)
-    h = nn.rms_norm(h[:, -1], params["final_norm"]["scale"])
+    h = nn.apply_norm(cfg, params["final_norm"], h[:, -1])
     logits = nn.unembed(cfg, _head(cfg, params), h)
 
     ks, vs = torch.stack(ks), torch.stack(vs)            # [L, B, <=S, Hk, hd]
@@ -181,12 +216,12 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         lp = layer_params(params, i)
         scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quant
                   else None)
-        attn_in = nn.rms_norm(h, lp["ln1"]["scale"])
+        attn_in = nn.apply_norm(cfg, lp["ln1"], h)
         h = h + nn.attention_decode(
             cfg, lp["attn"], attn_in, cache["k"][i], cache["v"][i], pos,
             new_lens, kv_scales=scales)
-        h = h + nn.mlp_block(cfg, lp["mlp"], nn.rms_norm(h, lp["ln2"]["scale"]))
-    h = nn.rms_norm(h, params["final_norm"]["scale"])
+        h = h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
+    h = nn.apply_norm(cfg, params["final_norm"], h)
     return nn.unembed(cfg, _head(cfg, params), h), {**cache, "lens": new_lens}
 
 
@@ -219,7 +254,7 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, pool: Dict,
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         kp, vp = pool["k"][i], pool["v"][i]            # [n_pages, page, Hk, hd]
-        attn_in = nn.rms_norm(h, lp["ln1"]["scale"])
+        attn_in = nn.apply_norm(cfg, lp["ln1"], h)
         q, k_new, v_new = nn.qkv_project(lp["attn"], attn_in)
         if cfg.pos == "rope":
             q = nn.apply_rope(q, seq_lens, cfg.rope_theta)
@@ -231,8 +266,8 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, pool: Dict,
         kp[phys, offset] = k_new.to(kp.dtype)
         vp[phys, offset] = v_new.to(vp.dtype)
         h = h + nn.merge_heads(attn, lp["attn"]["wo"])
-        h = h + nn.mlp_block(cfg, lp["mlp"], nn.rms_norm(h, lp["ln2"]["scale"]))
-    h = nn.rms_norm(h, params["final_norm"]["scale"])
+        h = h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
+    h = nn.apply_norm(cfg, params["final_norm"], h)
     return nn.unembed(cfg, _head(cfg, params), h)
 
 
@@ -264,7 +299,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Dict, pool: Dict,
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         kp, vp = pool["k"][i], pool["v"][i]
-        attn_in = nn.rms_norm(h, lp["ln1"]["scale"])
+        attn_in = nn.apply_norm(cfg, lp["ln1"], h)
         q, k, v = nn.qkv_project(lp["attn"], attn_in)   # [B, C, H/Hk, hd]
         if cfg.pos == "rope":
             q = nn.apply_rope(q, positions, cfg.rope_theta)
@@ -276,6 +311,6 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Dict, pool: Dict,
             q, kp, vp, page_table, q_offset, kv_lens,
             logit_softcap=cfg.logit_softcap, impl=impl)
         h = h + nn.merge_heads(attn, lp["attn"]["wo"])
-        h = h + nn.mlp_block(cfg, lp["mlp"], nn.rms_norm(h, lp["ln2"]["scale"]))
-    h = nn.rms_norm(h[:, -1], params["final_norm"]["scale"])
+        h = h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
+    h = nn.apply_norm(cfg, params["final_norm"], h[:, -1])
     return nn.unembed(cfg, _head(cfg, params), h)

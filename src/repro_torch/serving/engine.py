@@ -62,7 +62,7 @@ from ..core.scheduler import DriftScheduler
 from ..models import transformer
 from ..models.config import ModelConfig
 from ..models.layers import resolve_device
-from ..models.registry import get_api
+from ..models.registry import get_serving_api
 from ..models.steps import sample_logits
 from ..obs import events as tr
 from ..obs import resolve_recorder
@@ -135,7 +135,7 @@ class ServingEngine:
         if self.trace.enabled:
             self.sched.drift.trace = self.trace
         # raises NotImplementedError for the families later slices port
-        self.api = get_api(cfg)
+        self.api = get_serving_api(cfg)
         c = self.ecfg.chunk_prefill_tokens
         if c is not None and c < 1:
             raise ValueError(

@@ -9,7 +9,14 @@ a missing GPU is a failure:
 
 Tolerances: float32 ``atol=rtol=2e-5``; bfloat16 ``atol=rtol=1e-2``
 (both versions sum in float32; they differ in order only, so bf16
-outputs are at most about one bf16 ulp apart).
+outputs are at most about one bf16 ulp apart). Gradients through the
+kernels' autograd Functions against plain autograd: the backward is the
+same plain code on both sides, recomputed from the same inputs, and the
+forward outputs differ within the tolerances above, so the gradients
+agree to float32 rounding, ``atol=rtol=1e-4`` (float32 inputs). The
+SSD scan's float32 outputs sum terms as large as the call's largest
+outputs, so their rounding error scales with ``max |y|``: float32 atol
+``1e-5 * max |y|`` there.
 """
 
 import os
@@ -17,8 +24,12 @@ import os
 import pytest
 import torch
 
+from repro_torch.configs import smoke_config
+from repro_torch.distributed.optimizer import Optimizer, OptimizerConfig
 from repro_torch.kernels import (chunked_prefill, flash_attention, ops,
-                                 paged_attention)
+                                 paged_attention, ssd_scan)
+from repro_torch.models.registry import get_api
+from repro_torch.models.steps import make_train_step
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
@@ -96,6 +107,7 @@ def test_prefill_kernel_matches_plain(cuda, B, H, Hk, D, P, pps, C, dtype):
 @pytest.mark.parametrize("B,Lq,Lk,H,Hk,D,kw", [
     (2, 40, 40, 3, 1, 24, dict()),                          # smoke smollm
     (1, 256, 256, 9, 3, 64, dict()),                        # the engine's
+    (8, 512, 512, 9, 3, 64, dict()),                        # the trainer's
     (1, 256, 256, 32, 8, 80, dict(window=64, prefix_len=16)),  # h2o-danube
     (1, 16, 200, 8, 2, 256, dict(logit_softcap=30.0)),      # > 48 KB smem
     (2, 1, 200, 9, 3, 64, dict(window=64)),                 # Lq 1
@@ -134,3 +146,102 @@ def test_paged_decode_kernel_matches_plain(cuda, B, H, Hk, D, P, pps, dtype):
     assert paged_attention.paged_decode_launches == before + 1
     assert torch.all(got[0] == 0)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _ssd_inputs(gen, dev, B, L, H, G, P, N, dtype):
+    x = torch.randn(B, L, H, P, generator=gen, device=dev) * 0.5
+    a = -torch.randn(B, L, H, generator=gen, device=dev).abs() * 0.1
+    b = torch.randn(B, L, G, N, generator=gen, device=dev) * 0.5
+    c = torch.randn(B, L, G, N, generator=gen, device=dev) * 0.5
+    return [t.to(dtype) for t in (x, a, b, c)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,G,P,N,Q", [
+    (1, 128, 4, 1, 16, 16, 32),      # the JAX test shapes
+    (2, 256, 8, 2, 32, 64, 64),
+    (1, 64, 2, 1, 64, 128, 64),
+    (1, 100, 8, 1, 16, 16, 32),      # smoke mamba2, ragged last chunk
+    (2, 40, 4, 2, 16, 32, 64),       # L < chunk
+    (1, 1000, 80, 1, 64, 128, 256),  # mamba2-2.7b, ragged
+    (1, 512, 64, 1, 64, 64, 256),    # zamba2
+])
+def test_ssd_kernel_matches_plain(cuda, B, L, H, G, P, N, Q, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x, a, b, c = _ssd_inputs(gen, cuda, B, L, H, G, P, N, dtype)
+    before = ssd_scan.launches
+    got = ops.ssd(x, a, b, c, chunk=Q, impl="cuda")
+    want = ops.ssd(x, a, b, c, chunk=Q, impl="reference")
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = dict(TOL[dtype])
+    if dtype == torch.float32:
+        tol["atol"] = max(tol["atol"], 1e-5 * want.abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _grads(fn, inputs, r):
+    ins = [t.clone().requires_grad_() for t in inputs]
+    out = fn(*ins)
+    return out, torch.autograd.grad(out, ins, r)
+
+
+def test_ssd_kernel_gradients_match_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    inputs = _ssd_inputs(gen, cuda, 2, 200, 8, 2, 32, 64, torch.float32)
+    r = torch.randn(inputs[0].shape, generator=gen, device=cuda)
+    before = ssd_scan.launches
+    yk, gk = _grads(lambda *t: ops.ssd(*t, chunk=64, impl="cuda"), inputs, r)
+    yp, gp = _grads(lambda *t: ops.ssd(*t, chunk=64, impl="reference"),
+                    inputs, r)
+    assert ssd_scan.launches == before + 1 and yk.grad_fn is not None
+    for got, want in zip(gk, gp):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,L,kw", [
+    (2, 64, dict(window=40)),
+    (8, 512, dict()),                # the dense trainer's, smollm-135m
+])
+def test_flash_kernel_gradients_match_plain(cuda, B, L, kw):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda)
+               for s in ((B, L, 9, 64), (B, L, 3, 64), (B, L, 3, 64)))
+    r = torch.randn(q.shape, generator=gen, device=cuda)
+    before = flash_attention.launches
+    yk, gk = _grads(lambda *t: ops.attention(*t, impl="cuda", **kw),
+                    (q, k, v), r)
+    yp, gp = _grads(lambda *t: ops.attention(*t, impl="reference", **kw),
+                    (q, k, v), r)
+    assert flash_attention.launches == before + 1 and yk.grad_fn is not None
+    for got, want in zip(gk, gp):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch,seq", [("mamba2-2.7b", 100),
+                                      ("smollm-135m", 64)])
+def test_train_step_on_cuda(cuda, arch, seq):
+    """Two smoke-size train steps on the card: the kernels run twice per
+    layer and step (forward, and its recompute under remat), the loss
+    and the grad norm are finite, and the params move."""
+    cfg = smoke_config(arch)
+    params = get_api(cfg).init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                               device=cuda)
+    opt = Optimizer(OptimizerConfig(warmup_steps=1))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    counter = (ssd_scan, "launches") if cfg.family == "ssm" else \
+        (flash_attention, "launches")
+    before = getattr(*counter)
+    w0 = params["embed"]["table"].detach().clone()
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab, (2, seq + 1), generator=gen,
+                             device=cuda)
+        params, state, m = step(params, state, {"tokens": toks[:, :-1],
+                                                "labels": toks[:, 1:]})
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    torch.cuda.synchronize()
+    assert getattr(*counter) - before == 2 * 2 * cfg.n_layers
+    assert not torch.equal(params["embed"]["table"], w0)

@@ -238,6 +238,9 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch, repro_torch.serving.engine\n"
         "import repro_torch.launch.serve, repro_torch.bridge\n"
         "import repro_torch.kernels.ops, repro_torch.configs\n"
+        "import repro_torch.launch.train, repro_torch.models.mamba2\n"
+        "import repro_torch.distributed.optimizer, repro_torch.data.pipeline\n"
+        "import repro_torch.distributed.checkpoint, repro_torch.models.steps\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -255,6 +258,9 @@ def test_port_sources_never_import_jax_or_repro():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
+               for p in files if "repro_torch" in p.parts}
+    assert {"distributed", "data", "launch", "models", "kernels"} <= scanned
     for path in files:
         hits = pattern.findall(path.read_text())
         assert not hits, (path, hits)
