@@ -4,10 +4,14 @@ Each ``csrc/<name>.cu`` has one or more plain C entry points and
 compiles on its own into ``<build dir>/<name>-<hash>.so``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so csrc/<name>.cu
 
-The hash covers the source and the flags, so an unchanged source is not
-rebuilt. The build directory is ``kernels/.build`` beside this file
+(``-Xptxas -v``: each kernel's registers, spills and shared memory, in
+the log :func:`build_all` returns.)
+
+The hash covers the source, every header under ``csrc/`` and the flags,
+so an unchanged source is not rebuilt and a header edit rebuilds every
+source. The build directory is ``kernels/.build`` beside this file
 (listed in ``.gitignore``). No source includes PyTorch's headers, so a
 build takes seconds; :func:`build_all` starts one ``nvcc`` per source,
 all at once. Nothing here runs at import time: the first wrapper call
@@ -22,12 +26,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,9 +69,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of its source,
+    every header under ``csrc/`` (which it may include) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -86,31 +94,34 @@ def _start(name: str):
     return proc, tmp, out
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, started) -> str:
+    """Wait for nvcc; its log ("" if the library was current)."""
     if started is None:
-        return
+        return ""
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    return log
 
 
-def build_all() -> List[str]:
+def build_all() -> Dict[str, str]:
     """Build every source in ``SIGNATURES`` in parallel (one nvcc per
-    source). Returns the names built or found current."""
+    source). Returns each name's nvcc log ("" where it was current)."""
     names = list(SIGNATURES)
     procs = {n: _start(n) for n in names}
+    logs = {}
     try:
         for n in names:
-            _finish(n, procs[n])
+            logs[n] = _finish(n, procs[n])
     finally:
         for started in procs.values():
             if started is not None and started[0].poll() is None:
                 started[0].kill()
                 started[0].wait()
-    return names
+    return logs
 
 
 def load(name: str, symbol: str):

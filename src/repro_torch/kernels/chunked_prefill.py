@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from . import _build, ref
+from .flash_attention import aligned16
 from .paged_attention import _DTYPES, check_operands
 
 #: kernel launches on CUDA tensors (never counts the plain version)
@@ -58,7 +59,9 @@ def chunked_prefill_attention(
     if (page_table.shape[0] != B or q_offsets.shape != (B,)
             or kv_lens.shape != (B,)):
         raise ValueError("page_table must be [B, P], q_offsets/kv_lens [B]")
-    q = q.contiguous()
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("page pools must start on 16 bytes")
+    q = aligned16(q.contiguous())
     page_table = page_table.to(torch.int32).contiguous()
     q_offsets = q_offsets.to(torch.int32).contiguous()
     kv_lens = kv_lens.to(torch.int32).contiguous()

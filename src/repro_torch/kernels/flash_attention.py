@@ -30,6 +30,13 @@ from .paged_attention import _DTYPES
 launches = 0
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on 16 bytes:
+    the bf16 kernels copy rows with 16-byte ``cp.async`` (a contiguous
+    view can start mid-row)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention(
     q: torch.Tensor,            # [B, Lq, H, D]
     k: torch.Tensor,            # [B, Lk, Hk, D]
@@ -69,7 +76,7 @@ def flash_attention(
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
     if D % 8 or D > 256:
         raise ValueError(f"head_dim must be a multiple of 8 and <= 256, got {D}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (aligned16(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     if B == 0 or Lq == 0:
         return out

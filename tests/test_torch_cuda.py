@@ -125,6 +125,65 @@ def test_flash_kernel_matches_plain(cuda, B, Lq, Lk, H, Hk, D, kw, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+# The bf16 kernels work in 64-row tiles (query position x group) and
+# 64-key tiles: ragged row and key counts, mask edges inside a tile, and
+# head dims padded to the tensor-core depth of 16 (24 -> 32, 80 -> 96).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Lq,Lk,H,Hk,D,kw", [
+    (2, 50, 50, 9, 3, 64, dict()),                   # 150 rows: 2.3 tiles
+    (1, 70, 200, 9, 3, 64, dict()),                  # Lk 200, not 64k
+    (1, 100, 200, 8, 2, 64, dict(window=40, prefix_len=20)),  # edges mid-tile
+    (1, 96, 131, 6, 2, 64, dict(causal=False, window=70)),
+    (2, 37, 77, 3, 1, 24, dict(prefix_len=70, logit_softcap=30.0)),  # D 24
+    (1, 90, 150, 32, 8, 80, dict(window=33, prefix_len=5)),  # D 80
+    (1, 40, 90, 8, 2, 256, dict(window=50)),                 # D 256
+])
+def test_flash_kernel_tile_edges(cuda, B, Lq, Lk, H, Hk, D, kw, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(B, Lq, H, D, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(B, Lk, Hk, D, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(B, Lk, Hk, D, generator=gen, device=cuda).to(dtype)
+    before = flash_attention.launches
+    got = ops.attention(q, k, v, impl="cuda", **kw)
+    want = ops.attention(q, k, v, impl="reference", **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# q_offset 128 (a prefix-cache hit), ragged row counts, kv_len ending
+# mid-page and, for the second sequence, before the chunk ends (its
+# later rows are zeros); the table past each kv_len is poisoned.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H,Hk,D", [
+    (128, 9, 3, 64),            # the engine's chunk
+    (100, 9, 3, 64),            # 300 rows
+    (50, 3, 1, 24),             # D 24
+    (70, 32, 8, 80),            # D 80
+    (33, 8, 2, 256),            # D 256
+])
+def test_prefill_kernel_tile_edges(cuda, C, H, Hk, D, dtype):
+    P, pps = 16, 24
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    k, v, table = _scene(gen, cuda, 2, Hk, D, P, pps, dtype)
+    q = torch.randn(2, C, H, D, generator=gen, device=cuda).to(dtype)
+    off = torch.tensor([128, 128], dtype=torch.int32, device=cuda)
+    lens = [128 + C, 128 + C // 2 + 3]
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    poisoned = table.clone()
+    for b, n in enumerate(lens):
+        poisoned[b, -(-n // P):] = k.shape[0] * 13 + b
+    before = chunked_prefill.launches
+    got = ops.chunked_prefill_attention(q, k, v, poisoned, off, kv,
+                                        impl="cuda")
+    want = ops.chunked_prefill_attention(q, k, v, table, off, kv,
+                                         impl="reference")
+    torch.cuda.synchronize()
+    assert chunked_prefill.launches == before + 1
+    assert torch.all(got[1, lens[1] - 128:] == 0)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hk,D,P,pps", [
     (3, 3, 1, 24, 8, 12),        # smoke smollm

@@ -299,3 +299,41 @@ def test_ops_refuse_cuda_impl_for_cpu_tensors():
         ops.chunked_prefill_attention(
             torch.zeros(1, 2, 2, 8), kt, vt, pt, torch.tensor([0]),
             torch.tensor([2]), impl="pallas")
+
+
+def test_library_path_hashes_every_header(tmp_path, monkeypatch):
+    """A library's cache key covers its ``.cu`` and every ``.cuh`` under
+    ``csrc/``, so a header edit rebuilds the sources that include it.
+    Nothing is built: only the names are computed."""
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (csrc / "a.cu").write_text('#include "tile.cuh"\nint x;\n')
+    (csrc / "tile.cuh").write_text("int y;\n")
+    first = _build._lib_path("a")
+    assert first.parent == tmp_path / "build" and first.name.startswith("a-")
+    assert _build._lib_path("a") == first
+    (csrc / "tile.cuh").write_text("int y = 1;\n")
+    assert _build._lib_path("a") != first
+    (csrc / "tile.cuh").write_text("int y;\n")
+    assert _build._lib_path("a") == first
+    (csrc / "a.cu").write_text('#include "tile.cuh"\nint x = 2;\n')
+    assert _build._lib_path("a") != first
+    (csrc / "a.cu").write_text('#include "tile.cuh"\nint x;\n')
+    (csrc / "other.cuh").write_text("int z;\n")
+    assert _build._lib_path("a") != first
+    assert not (tmp_path / "build").exists()
+
+
+def test_misaligned_operand_is_copied_to_16_bytes():
+    """The bf16 kernels copy rows 16 bytes at a time: a contiguous view
+    that starts mid-row reaches them as an aligned copy, values equal."""
+    base = torch.arange(40, dtype=torch.bfloat16)
+    view = base[1:33].view(1, 1, 4, 8)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    got = flash_attention.aligned16(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    aligned = base[:32]
+    assert flash_attention.aligned16(aligned) is aligned
