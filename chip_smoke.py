@@ -24,7 +24,13 @@ first that fails:
                  trainer's batch 8 x 512 and the tile edges (ragged row
                  and key counts, window and prefix edges inside a tile,
                  D 24/80/256); per-sequence paged
-                 decode on the batched kernel's shapes; the SSD scan at
+                 decode on the batched kernel's shapes; both decode
+                 kernels where their page splits matter (tables of 64
+                 and 128 pages, lengths up to 2,047 on, past and before
+                 a split edge and mid-split, a batch of empty slots but
+                 one) against the plain version and the split-order
+                 plain version, two calls bit-identical, the merge
+                 counters left at 0; the SSD scan at
                  the JAX test shapes, a ragged L, G 2, L < chunk, and
                  mamba2-2.7b's (L 2048 and 1000) and zamba2's shapes;
                  gradients through the flash and SSD autograd Functions
@@ -38,7 +44,8 @@ first that fails:
                  device time (torch.profiler), the bound (least time for
                  the bytes and FLOPs it needs) and the rates reached in
                  the device time (TFLOP/s, GB/s); chunked prefill also
-                 after a 128-token prefix-cache hit;
+                 after a 128-token prefix-cache hit, the batched decode
+                 also at long context (8 x 1,900-2,047 tokens);
 5. engine        full-width smollm-135m, bf16, 24 requests through
                  DriftScheduler("sjf") and the paged engine, with the
                  kernels' launch counts checked against the iterations;
@@ -215,9 +222,13 @@ def device_phase():
     return name, smi_line
 
 
+_BUILTIN_TYPES = {"f": "float", "i": "int", "b": "bool", "j": "unsigned"}
+
+
 def kernel_name(symbol):
-    """A mangled kernel symbol's last name, with its integer template
-    argument if it has one: ``flash_attention_bf16_kernel<64>``."""
+    """A mangled kernel symbol's last name with its template arguments:
+    ``flash_attention_bf16_kernel<64>``,
+    ``paged_decode_split_kernel<__nv_bfloat16,1,3,1>``."""
     mangled = re.match(r"_ZN?", symbol)
     i, name = (mangled.end() if mangled else len(symbol)), symbol
     while i < len(symbol) and symbol[i].isdigit():
@@ -226,8 +237,25 @@ def kernel_name(symbol):
             j += 1
         n = int(symbol[i:j])
         name, i = symbol[j:j + n], j + n
-    arg = re.match(r"IL\w(\d+)E", symbol[i:])
-    return name + (f"<{arg.group(1)}>" if arg else "")
+    args = []
+    if symbol[i:i + 1] == "I":
+        i += 1
+        while i < len(symbol) and symbol[i] != "E":
+            if symbol[i] == "L":                      # literal: L<type><value>E
+                j = symbol.index("E", i)
+                args.append(symbol[i + 2:j].replace("n", "-"))
+                i = j + 1
+            elif symbol[i].isdigit():                 # a named type
+                j = i
+                while symbol[j].isdigit():
+                    j += 1
+                n = int(symbol[i:j])
+                args.append(symbol[j:j + n])
+                i = j + n
+            else:                                     # a builtin type
+                args.append(_BUILTIN_TYPES.get(symbol[i], symbol[i]))
+                i += 1
+    return name + (f"<{','.join(args)}>" if args else "")
 
 
 def ptxas_summary(log):
@@ -375,6 +403,7 @@ def kernel_check_phase(dev):
                              f"H{H} Hk{Hk} D{D} P{P} softcap={softcap} "
                              f"poisoned={poisoned}: max abs err {err} > tol "
                              f"{TOL[dtype]} (or a seq_len-0 row not zero)")
+    n_cases += decode_split_checks(gen, dev, worst)
     shapes_flash = [  # B, Lq, Lk, H, Hk, D, mask keywords
         (2, 40, 40, 3, 1, 24, {}),                        # smoke smollm
         (2, 40, 40, 4, 2, 16, dict(window=16)),           # smoke h2o-danube
@@ -473,6 +502,89 @@ def kernel_check_phase(dev):
           ssd_f32_atol_per_max_abs=SSD_F32_ATOL_PER_MAX)
 
 
+def split_lens(B, P, pps, per, longest):
+    """Sequence lengths that end on split edges (``per`` pages each),
+    one token past and before them, mid-split, the longest, and 0."""
+    edge = per * P
+    picks = [longest, edge, edge + 1, 3 * edge - 1, 2 * edge + edge // 2,
+             0, min(5 * edge, P * pps - 1), 7]
+    return [min(n, P * pps - 1) for n in picks[:B]]
+
+
+def decode_split_checks(gen, dev, worst):
+    """Both decode kernels where their page splits matter: long tables
+    (up to 2,047 tokens) with lengths on, just past and just before a
+    split edge and mid-split, the 32-q-head layout, and a batch whose
+    slots but one are empty; float32 and bf16, softcap on and off,
+    poisoned table tails. Each output against the plain version and
+    against ``ref.paged_decode_split_ref`` at the same plan, and two
+    calls bit-identical. Returns the number of cases."""
+    from repro_torch.kernels import ops, paged_attention, ref
+    scenes = []                      # (B, H, Hk, D, P, pps, lens)
+    for B, H, Hk, D, P, pps, longest in ((8, 9, 3, 64, 16, 128, 2047),
+                                         (4, 32, 8, 128, 16, 64, 1023)):
+        mp = min(pps, 2 ** math.ceil(math.log2(-(-longest // P))))
+        per, _ = paged_attention.split_plan(B, Hk, mp, P)
+        scenes.append((B, H, Hk, D, P, pps, split_lens(B, P, pps, per,
+                                                        longest)))
+    scenes.append((8, 9, 3, 64, 16, 32, [0, 0, 0, 0, 0, 300, 0, 0]))
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, Hk, D, P, pps, lens in scenes:
+            mp = min(pps, 2 ** math.ceil(math.log2(max(1, -(-max(lens) // P)))))
+            for softcap in (None, 30.0):
+                for poisoned in (False, True):
+                    q, k, v, table, sl, kn, vn = decode_inputs(
+                        gen, B, H, Hk, D, P, pps, lens, dtype, dev)
+                    pt = poison(table, lens, P, k.shape[0]) if poisoned else table
+                    for name, steps in (("decode", mp), ("paged_decode", pps)):
+                        fused = name == "decode"
+                        if fused:
+                            call = functools.partial(
+                                ops.batched_paged_decode_attention, q, k, v,
+                                pt, sl, kn, vn, max_pages=mp,
+                                logit_softcap=softcap, impl="cuda")
+                            want = ops.batched_paged_decode_attention(
+                                q, k, v, table, sl, kn, vn,
+                                logit_softcap=softcap, impl="reference")
+                        else:
+                            call = functools.partial(
+                                ops.paged_decode_attention, q, k, v, pt, sl,
+                                logit_softcap=softcap, impl="cuda")
+                            want = ops.paged_decode_attention(
+                                q, k, v, table, sl, logit_softcap=softcap,
+                                impl="reference")
+                        per, S = paged_attention.split_plan(B, Hk, steps, P)
+                        split = ref.paged_decode_split_ref(
+                            q, k, v, table, sl, *((kn, vn) if fused else ()),
+                            pages_per_split=per, n_page_steps=steps,
+                            logit_softcap=softcap)
+                        got, again = call(), call()
+                        torch.cuda.synchronize()
+                        err = max(max_err(got, want), max_err(got, split))
+                        key = (name, str(dtype).split(".")[-1])
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        n_cases += 1
+                        empty = [b for b, n in enumerate(lens) if n == 0]
+                        if not (within(got, want, dtype)
+                                and within(got, split, dtype)):
+                            fail(f"{name} kernel at split edges: {dtype} B{B} "
+                                 f"H{H} Hk{Hk} D{D} P{P} pps{pps} lens {lens} "
+                                 f"plan ({per}, {S}) softcap={softcap} "
+                                 f"poisoned={poisoned}: max abs err {err} > "
+                                 f"tol {TOL[dtype]}")
+                        if not torch.equal(got, again):
+                            fail(f"{name} kernel not bit-identical across two "
+                                 f"calls: {dtype} B{B} lens {lens}")
+                        if not fused and got[empty].any():
+                            fail(f"paged_decode kernel: a seq_len-0 row is not "
+                                 f"zero ({dtype} B{B} lens {lens})")
+    for tickets in paged_attention._tickets.values():
+        if tickets.any():
+            fail("paged decode: a merge counter was left nonzero")
+    return n_cases
+
+
 def time_ms(fn, flush):
     """Median over TIMING_REPS of one call between CUDA events, after a
     warm-up, with L2 flushed before each call (the engine reaches each
@@ -528,6 +640,16 @@ def decode_timing_scene(dev):
     args = decode_inputs(gen, B, H, Hk, D, P, pps, lens, torch.bfloat16, dev)
     max_pages = 16                    # next power of two over ceil(191/16)
     return args, max_pages
+
+
+def long_decode_timing_scene(dev):
+    """The batched decode call at long context: 8 sequences of 1,900 to
+    2,047 tokens, full-width smollm-135m heads, 128-page tables, bf16."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, H, Hk, D, P, pps = 8, 9, 3, 64, 16, 128
+    lens = [1900 + 21 * b for b in range(B)]
+    args = decode_inputs(gen, B, H, Hk, D, P, pps, lens, torch.bfloat16, dev)
+    return args, 128                 # next power of two over ceil(2047/16)
 
 
 def prefill_timing_scene(dev, q_offset=0):
@@ -676,37 +798,44 @@ def timings(kernel, plain, library, flush):
 
 
 def kernel_times_phase(dev):
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, paged_attention
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows = []
 
-    (q, k, v, table, lens, kn, vn), mp = decode_timing_scene(dev)
-    args = (q, k, v, table, lens, kn, vn)
-    got = ops.batched_paged_decode_attention(*args, max_pages=mp, impl="cuda")
-    want = ops.batched_paged_decode_attention(*args, impl="reference")
-    err = max_err(got, want)
-    if not within(got, want, torch.bfloat16):
-        fail(f"decode kernel vs plain at engine shapes: max abs err {err}")
-    sq, sk, sv, smask = sdpa_decode_inputs(*args)
-    _, P, Hk, D = k.shape
-    n_bytes, flops = decode_bound(q, lens.tolist(), P, Hk, D, mp)
-    rows.append(dict(
-        name="batched_paged_decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_decode.cu",
-        replaces="src/repro/kernels/paged_attention.py:242",
-        max_abs_err=err,
-        **timings(lambda: ops.batched_paged_decode_attention(
-            *args, max_pages=mp, impl="cuda"),
-            lambda: ops.batched_paged_decode_attention(
-                *args, impl="reference"),
-            lambda: sdpa(sq, sk, sv, attn_mask=smask, enable_gqa=True),
-            flush),
-        bytes=n_bytes, flops=flops))
+    # the engine's decode call is the table's row; 8 sequences of ~2,000
+    # tokens are timed beside it (there the bound is microseconds)
+    extra = []
+    for scene, path in ((decode_timing_scene, "paged engine (decode)"),
+                        (long_decode_timing_scene,
+                         "long context (8 x 1,900-2,047 tokens)")):
+        (q, k, v, table, lens, kn, vn), mp = scene(dev)
+        args = (q, k, v, table, lens, kn, vn)
+        got = ops.batched_paged_decode_attention(*args, max_pages=mp,
+                                                 impl="cuda")
+        want = ops.batched_paged_decode_attention(*args, impl="reference")
+        err = max_err(got, want)
+        if not within(got, want, torch.bfloat16):
+            fail(f"decode kernel vs plain, {path}: max abs err {err}")
+        sq, sk, sv, smask = sdpa_decode_inputs(*args)
+        _, P, Hk, D = k.shape
+        n_bytes, flops = decode_bound(q, lens.tolist(), P, Hk, D, mp)
+        (rows if scene is decode_timing_scene else extra).append(dict(
+            name="batched_paged_decode_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_decode.cu",
+            replaces="src/repro/kernels/paged_attention.py:242",
+            max_abs_err=err, path=path,
+            split_plan=paged_attention.split_plan(q.shape[0], Hk, mp, P),
+            **timings(lambda: ops.batched_paged_decode_attention(
+                *args, max_pages=mp, impl="cuda"),
+                lambda: ops.batched_paged_decode_attention(
+                    *args, impl="reference"),
+                lambda: sdpa(sq, sk, sv, attn_mask=smask, enable_gqa=True),
+                flush),
+            bytes=n_bytes, flops=flops))
 
     # the chunk at q_offset 0 is the table's row; the same chunk after a
     # 128-token prefix-cache hit is timed beside it
-    extra = []
     for q_offset in (0, 128):
         q, k, v, table, off, kv = prefill_timing_scene(dev, q_offset)
         args = (q, k, v, table, off, kv)
@@ -750,6 +879,8 @@ def kernel_times_phase(dev):
         source="src/repro_torch/kernels/csrc/paged_decode.cu",
         replaces="src/repro/kernels/paged_attention.py:108",
         max_abs_err=err,
+        split_plan=paged_attention.split_plan(q.shape[0], Hk,
+                                              table.shape[1], P),
         **timings(lambda: ops.paged_decode_attention(*args, impl="cuda"),
                   lambda: ops.paged_decode_attention(*args,
                                                      impl="reference"),

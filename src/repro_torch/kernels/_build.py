@@ -28,6 +28,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,8 +41,8 @@ _F = ctypes.c_float
 # C signature of every entry point: source -> {symbol: argtypes}
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "paged_decode": {
-        "batched_paged_decode_launch": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P],
-        "paged_decode_launch": [_P] * 6 + [_I] * 6 + [_F, _F, _I, _P],
+        "batched_paged_decode_launch": [_P] * 10 + [_I] * 9 + [_F, _F, _I, _P],
+        "paged_decode_launch": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
     },
     "chunked_prefill": {
         "chunked_prefill_launch": [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P],
@@ -137,6 +139,13 @@ def load(name: str, symbol: str):
     fn.argtypes = SIGNATURES[name][symbol]
     fn.restype = ctypes.c_int
     return fn
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on 16 bytes:
+    the kernels load rows 16 bytes at a time (a contiguous view can start
+    mid-row)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(err: int, what: str) -> None:

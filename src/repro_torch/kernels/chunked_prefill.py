@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .flash_attention import aligned16
+from ._build import aligned16
 from .paged_attention import _DTYPES, check_operands
 
 #: kernel launches on CUDA tensors (never counts the plain version)

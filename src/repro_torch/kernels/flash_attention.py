@@ -24,17 +24,11 @@ from typing import Optional
 import torch
 
 from . import _build, ref
+from ._build import aligned16
 from .paged_attention import _DTYPES
 
 #: kernel launches on CUDA tensors (never counts the plain version)
 launches = 0
-
-
-def aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it when its data does not start on 16 bytes:
-    the bf16 kernels copy rows with 16-byte ``cp.async`` (a contiguous
-    view can start mid-row)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention(

@@ -5,9 +5,12 @@ against, ported from the JAX package's ``kernels/ref.py``: dense GQA
 attention (``mha_naive``, ``flash_attention_chunked``), contiguous-cache
 decode, the paged forms, which gather each sequence's pages into a
 contiguous view and then run textbook masked softmax attention in
-float32, and the Mamba-2 SSD scan (``ssd_naive``, ``ssd_chunked``). Rows whose mask is empty have zero mass and come out as zeros
-(``l == 0 -> 1``), except in ``mha_naive``, which keeps the textbook
-softmax's NaN there as the JAX oracle does. The wrappers in
+float32 (``paged_decode_split_ref`` repeats the split-page decode
+kernel's own order: per-run partials merged in run order), and the
+Mamba-2 SSD scan (``ssd_naive``, ``ssd_chunked``). Rows whose mask is
+empty have zero mass and come out as zeros (``l == 0 -> 1``), except
+in ``mha_naive``, which keeps the textbook softmax's NaN there as the
+JAX oracle does. The wrappers in
 ``flash_attention.py``, ``paged_attention.py``, ``chunked_prefill.py``
 and ``ssd_scan.py`` run these for tensors that lie on the CPU.
 
@@ -202,6 +205,70 @@ def batched_paged_decode_attention_ref(
     k[rows, lens] = k_new.to(k.dtype)
     v[rows, lens] = v_new.to(v.dtype)
     return decode_attention_ref(q, k, v, lens + 1, logit_softcap=logit_softcap)
+
+
+def paged_decode_split_ref(
+    q: torch.Tensor,            # [B, H, D]
+    k_pages: torch.Tensor,      # [n_pages, page_size, Hk, D]
+    v_pages: torch.Tensor,      # [n_pages, page_size, Hk, D]
+    page_table: torch.Tensor,   # [B, pages_per_seq] int32
+    seq_lens: torch.Tensor,     # [B] int32
+    k_new: Optional[torch.Tensor] = None,   # [B, Hk, D] fused token
+    v_new: Optional[torch.Tensor] = None,
+    *,
+    pages_per_split: int,
+    n_page_steps: Optional[int] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of the split-page kernel's arithmetic, in float32:
+    the pages ``[0, n_page_steps)`` (default: the whole table) are cut
+    into runs of ``pages_per_split``; each run's tokens, up to
+    ``min(seq_len, pages attended * page)``, give a partial (m, l, acc)
+    (m = -inf, l = 0 for a run past the sequence's end), and the
+    partials merge in run order. With ``k_new``/``v_new`` the current
+    token joins run 0 as one more key (the batched form); without, a
+    ``seq_len`` of 0 gives zeros (the per-sequence form)."""
+    B, H, D = q.shape
+    page_size, Hk = k_pages.shape[1], k_pages.shape[2]
+    pps = page_table.shape[1]
+    steps_max = pps if n_page_steps is None else n_page_steps
+    group = H // Hk
+    dev = q.device
+    qf = (q.float() * (D ** -0.5)).reshape(B, Hk, group, D)
+    lens = seq_lens.to(dev).long().clamp_min(0)
+    steps = torch.clamp(-(-lens // page_size), max=steps_max)
+    kv_len = torch.minimum(lens, steps * page_size)
+    parts = []
+    for p0 in range(0, steps_max, pages_per_split):
+        p1 = min(p0 + pages_per_split, steps_max)
+        table = page_table[:, p0:p1]
+        k = _gather_pages(k_pages, table).float()          # [B, T, Hk, D]
+        v = _gather_pages(v_pages, table).float()
+        pos = p0 * page_size + torch.arange(k.shape[1], device=dev)
+        mask = pos[None] < kv_len[:, None]                 # [B, T]
+        if k_new is not None and p0 == 0:
+            k = torch.cat([k, k_new.float()[:, None]], dim=1)
+            v = torch.cat([v, v_new.float()[:, None]], dim=1)
+            mask = torch.cat([mask, mask.new_ones(B, 1)], dim=1)
+        s = torch.einsum("bhgd,bthd->bhgt", qf, k)
+        if logit_softcap is not None:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        s = s.masked_fill(~mask[:, None, None], float("-inf"))
+        m = s.amax(dim=-1)                                 # [B, Hk, g]
+        safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        e = torch.exp(s - safe[..., None])
+        parts.append((m, e.sum(dim=-1),
+                      torch.einsum("bhgt,bthd->bhgd", e, v)))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    safe = torch.where(torch.isfinite(m_all), m_all, torch.zeros_like(m_all))
+    mass = torch.zeros_like(m_all)
+    acc = torch.zeros_like(qf)
+    for m, l, a in parts:
+        w = torch.exp(m - safe)
+        mass = mass + l * w
+        acc = acc + a * w[..., None]
+    out = acc / torch.where(mass == 0.0, torch.ones_like(mass), mass)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)
 
 
 def chunked_prefill_attention_ref(

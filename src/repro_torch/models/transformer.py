@@ -245,6 +245,9 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, pool: Dict,
     sequence. Returns logits [B, V]."""
     _check_family(cfg)
     page_size = pool["k"].shape[2]
+    # the kernel's int32 operands, made once per step for every layer
+    table32 = page_table.to(torch.int32).contiguous()
+    lens32 = seq_lens.to(torch.int32).contiguous()
     seq_lens = seq_lens.long()
     x = nn.embed(cfg, params["embed"], tokens)          # [B, d]
     offset = seq_lens % page_size
@@ -260,7 +263,7 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, pool: Dict,
             q = nn.apply_rope(q, seq_lens, cfg.rope_theta)
             k_new = nn.apply_rope(k_new, seq_lens, cfg.rope_theta)
         attn = ops.batched_paged_decode_attention(
-            q, kp, vp, page_table, seq_lens, k_new, v_new,
+            q, kp, vp, table32, lens32, k_new, v_new,
             max_pages=max_pages, logit_softcap=cfg.logit_softcap, impl=impl)
         # in-place pool update, after the kernel's read on the same stream
         kp[phys, offset] = k_new.to(kp.dtype)

@@ -27,7 +27,7 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.distributed.optimizer import Optimizer, OptimizerConfig
 from repro_torch.kernels import (chunked_prefill, flash_attention, ops,
-                                 paged_attention, ssd_scan)
+                                 paged_attention, ref, ssd_scan)
 from repro_torch.models.registry import get_api
 from repro_torch.models.steps import make_train_step
 
@@ -205,6 +205,69 @@ def test_paged_decode_kernel_matches_plain(cuda, B, H, Hk, D, P, pps, dtype):
     assert paged_attention.paged_decode_launches == before + 1
     assert torch.all(got[0] == 0)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _split_lens(B, Hk, P, pps, longest):
+    """Lengths on, one past and one before the edges of the plan's runs,
+    mid-run, the longest, and 0 (as chip_smoke's split checks)."""
+    steps = min(pps, 1 << (-(-longest // P) - 1).bit_length())  # the trim
+    edge = paged_attention.split_plan(B, Hk, steps, P)[0] * P
+    picks = [longest, edge, edge + 1, 3 * edge - 1, 2 * edge + edge // 2,
+             0, min(5 * edge, P * pps - 1), 7]
+    return [min(n, P * pps - 1) for n in picks[:B]]
+
+
+# Both decode kernels where their page splits matter: 128-page tables
+# with lengths up to 2,047 on, past and before a run's edge and mid-run,
+# the 32-q-head layout, and a batch of empty slots but one; softcap 30,
+# poisoned table tails. Each output against the plain version and the
+# split-order plain version, and two calls bit-identical.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False], ids=["batched", "paged"])
+@pytest.mark.parametrize("B,H,Hk,D,P,pps,lens", [
+    (8, 9, 3, 64, 16, 128, _split_lens(8, 3, 16, 128, 2047)),
+    (4, 32, 8, 128, 16, 64, _split_lens(4, 8, 16, 64, 1023)),
+    (8, 9, 3, 64, 16, 32, [0, 0, 0, 0, 0, 300, 0, 0]),
+])
+def test_decode_kernels_at_split_edges(cuda, B, H, Hk, D, P, pps, lens, fused,
+                                       dtype):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    k, v, table = _scene(gen, cuda, B, Hk, D, P, pps, dtype)
+    q = torch.randn(B, H, D, generator=gen, device=cuda).to(dtype)
+    kn = torch.randn(B, Hk, D, generator=gen, device=cuda).to(dtype)
+    vn = torch.randn(B, Hk, D, generator=gen, device=cuda).to(dtype)
+    sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    poisoned = table.clone()
+    for b, n in enumerate(lens):
+        poisoned[b, -(-n // P):] = k.shape[0] * 13 + b
+    # the batched kernel's page loop trimmed as the engine trims it
+    needed = max(1, -(-max(lens) // P))
+    steps = min(pps, 1 << (needed - 1).bit_length()) if fused else pps
+
+    def run(t, impl):
+        if fused:
+            return ops.batched_paged_decode_attention(
+                q, k, v, t, sl, kn, vn, max_pages=steps, logit_softcap=30.0,
+                impl=impl)
+        return ops.paged_decode_attention(q, k, v, t, sl, logit_softcap=30.0,
+                                          impl=impl)
+
+    counter = "launches" if fused else "paged_decode_launches"
+    before = getattr(paged_attention, counter)
+    got, again = run(poisoned, "cuda"), run(poisoned, "cuda")
+    want = run(table, "reference")
+    per, _ = paged_attention.split_plan(B, Hk, steps, P)
+    split = ref.paged_decode_split_ref(
+        q, k, v, table, sl, *((kn, vn) if fused else ()),
+        pages_per_split=per, n_page_steps=steps, logit_softcap=30.0)
+    torch.cuda.synchronize()
+    assert getattr(paged_attention, counter) == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(got.float(), split.float(), **TOL[dtype])
+    if not fused:
+        assert not got[sl == 0].any()
+    assert not any(t.any() for t in paged_attention._tickets.values())
 
 
 def _ssd_inputs(gen, dev, B, L, H, G, P, N, dtype):
