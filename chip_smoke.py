@@ -31,8 +31,12 @@ first that fails:
                  one) against the plain version and the split-order
                  plain version, two calls bit-identical, the merge
                  counters left at 0; the SSD scan at
-                 the JAX test shapes, a ragged L, G 2, L < chunk, and
-                 mamba2-2.7b's (L 2048 and 1000) and zamba2's shapes;
+                 the JAX test shapes, a ragged L, G 2, L < chunk,
+                 mamba2-2.7b's (L 2048 and 1000) and zamba2's shapes,
+                 N 256 with a chunk of 100, 16 chunks, and N 4 with
+                 H / G 1, against the plain version and its three
+                 stages (ref.ssd_chunked_pieces), two calls
+                 bit-identical;
                  gradients through the flash and SSD autograd Functions
                  at the trainers' shapes against plain autograd;
 4. kernel_times  each kernel at its main path's full-width shapes: its
@@ -40,7 +44,8 @@ first that fails:
                  included), the plain version's, a library call's where
                  one PyTorch call computes the same function (SDPA over
                  the gathered K/V, a yardstick the port never calls; none
-                 for the SSD scan), the kernel's and the library call's
+                 for the SSD scan; its CUDA launches per call are
+                 counted), the kernel's and the library call's
                  device time (torch.profiler), the bound (least time for
                  the bytes and FLOPs it needs) and the rates reached in
                  the device time (TFLOP/s, GB/s); chunked prefill also
@@ -70,11 +75,15 @@ first that fails:
                  through the training launcher's code: 6 AdamW steps on
                  batch 2 x 2048 synthetic tokens with per-layer remat;
                  SSD launches exactly 2 x 64 x 6 and no attention kernel;
-12. train_profile  one more step of it under torch.profiler;
+12. train_profile  one more step of it under torch.profiler, with the
+                 device time launched inside the SSD kernel's forward,
+                 the plain SSD backward and the AdamW update;
 13. train_check  one step's loss, grad norm and gradients of w_x,
                  out_proj, A_log and the embedding at full width, depth
                  cut to 8 layers: the kernel path against the plain path,
                  within the plain path's own bf16-vs-float32 deviation;
+                 beside it, ungated, the plain path at chunk 128 (the
+                 same function, summed in another order) against itself;
 14. train_dense  smollm-135m at full width, batch 8 x 512, 4 steps;
                  flash-attention launches exactly 2 x 30 x 4;
 15. train_dense_check  one step of it at full depth (30 layers): loss,
@@ -286,7 +295,7 @@ def build_phase():
 
 
 def kernel_check_phase(dev):
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(0)
     n_cases, worst = 0, {}
     shapes_decode = [  # B, H, Hk, D, P, pps
@@ -452,21 +461,32 @@ def kernel_check_phase(dev):
         (2, 2048, 80, 1, 64, 128, 256),   # mamba2-2.7b, the train shape
         (1, 1000, 80, 1, 64, 128, 256),   # mamba2-2.7b, ragged
         (1, 512, 64, 1, 64, 64, 256),     # zamba2
+        (2, 250, 8, 2, 32, 256, 100),     # N 256; chunk 100, not a multiple of 16
+        (1, 4096, 8, 2, 64, 128, 256),    # L = 16 chunks
+        (2, 65, 4, 4, 128, 4, 16),        # N 4, H / G 1, 4 chunks + 1 token
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for B, L, H, G, P, N, Q in shapes_ssd:
             x, a, b, c = ssd_inputs(gen, B, L, H, G, P, N, dtype, dev)
             got = ops.ssd(x, a, b, c, chunk=Q, impl="cuda")
+            again = ops.ssd(x, a, b, c, chunk=Q, impl="cuda")
             want = ops.ssd(x, a, b, c, chunk=Q, impl="reference")
+            pieces = ref.ssd_chunked_pieces(x, a, b, c, chunk=Q)
             torch.cuda.synchronize()
-            err = max_err(got, want)
+            err = max(max_err(got, want), max_err(got, pieces))
             key = ("ssd", str(dtype).split(".")[-1])
             worst[key] = max(worst.get(key, 0.0), err)
             n_cases += 1
-            if not within(got, want, dtype, ssd=True):
-                fail(f"ssd kernel vs plain: {dtype} B{B} L{L} H{H} G{G} P{P} "
-                     f"N{N} chunk {Q}: max abs err {err} > tol {TOL[dtype]} "
-                     f"(f32 atol {SSD_F32_ATOL_PER_MAX} x max |y|)")
+            if not (within(got, want, dtype, ssd=True)
+                    and within(got, pieces, dtype, ssd=True)):
+                fail(f"ssd kernel vs plain (chunked and in stages): {dtype} "
+                     f"B{B} L{L} H{H} G{G} P{P} N{N} chunk {Q}: max abs err "
+                     f"{err} > tol {TOL[dtype]} (f32 atol "
+                     f"{SSD_F32_ATOL_PER_MAX} x max |y|)")
+            if not torch.equal(got, again):
+                fail(f"ssd kernel not bit-identical across two calls: {dtype} "
+                     f"B{B} L{L} H{H} G{G} P{P} N{N} chunk {Q}")
+            del x, a, b, c, got, again, want, pieces
     # the autograd Functions at the trainers' shapes, bf16: the backward
     # is the plain version's, recomputed from the same saved inputs, so
     # the gradients through the kernel equal plain autograd's
@@ -629,6 +649,21 @@ def device_ms(fn, flush, reps=20, tries=3):
         if us > 0:
             return us / 1e3 / reps
     return None
+
+
+def kernels_per_call(fn):
+    """CUDA kernels one call of ``fn`` launches, counted by
+    torch.profiler (fills and memsets left out, as in ``device_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "FillFunctor<unsigned char>" not in e.key
+               and not e.key.startswith("Memset"))
 
 
 def decode_timing_scene(dev):
@@ -798,7 +833,7 @@ def timings(kernel, plain, library, flush):
 
 
 def kernel_times_phase(dev):
-    from repro_torch.kernels import ops, paged_attention
+    from repro_torch.kernels import ops, paged_attention, ssd_scan
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows = []
@@ -924,12 +959,26 @@ def kernel_times_phase(dev):
     err = max_err(got, want)
     if not within(got, want, torch.bfloat16, ssd=True):
         fail(f"ssd kernel vs plain at the train shape: max abs err {err}")
+    # ungated: the share of bf16 outputs that differ from bf16 of the plain
+    # version in float32 (one ulp each; tensor cores truncate their sums)
+    want32 = ops.ssd(*(t.float() for t in (x, a, b, c)), chunk=256,
+                     impl="reference").to(torch.bfloat16)
+    mismatch = (got != want32).float().mean().item()
+    del want32
     n_bytes, flops = ssd_bound(*shape, 256, x.element_size())
+    # one call is one count of ssd_scan.launches and three CUDA launches
+    # (chunk states, state pass, chunk scan)
+    n_cuda = kernels_per_call(lambda: ops.ssd(x, a, b, c, chunk=256,
+                                              impl="cuda"))
+    if n_cuda != ssd_scan.cuda_launches(shape[1], 256):
+        fail(f"ssd_scan: {n_cuda} CUDA launches per call, want "
+             f"{ssd_scan.cuda_launches(shape[1], 256)}")
     rows.append(dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:88",
-        max_abs_err=err,
+        max_abs_err=err, cuda_launches_per_call=n_cuda,
+        bf16_share_off_f32_plain=mismatch,
         **timings(lambda: ops.ssd(x, a, b, c, chunk=256, impl="cuda"),
                   lambda: ops.ssd(x, a, b, c, chunk=256, impl="reference"),
                   None, flush),
@@ -1111,14 +1160,15 @@ def engine_profile_phase(cfg, params, dev, label, ecfg, steps=24, **gen_kw):
     profile_summary(label, prof, steps, wall_ms, "iteration")
 
 
-def profile_summary(label, prof, steps, wall_ms, unit, **fields):
+def profile_summary(label, prof, steps, wall_ms, unit, skip=(), **fields):
     """Device time per ``unit`` (iteration or step), its share of the
     profiled wall time, and the top device items. Device-side events
     only (kernels, copies): a CPU op's own device time is the same
-    kernels again."""
+    kernels again, and so is the device-side span of a profiler range
+    named in ``skip``."""
     per_kernel = {}     # kernel name cut to 60 characters -> (us, count)
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in skip:
             continue
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
@@ -1318,9 +1368,15 @@ def train_phase(dev):
 
 
 def train_profile_phase(setup, dev):
-    """One more step of the same trainer under torch.profiler."""
+    """One more step of the same trainer under torch.profiler, with the
+    device time of the kernels launched inside each profiler range of
+    the step: the SSD kernel's forward calls, the plain SSD backward
+    and the AdamW update (ungated)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
     from repro_torch.launch.train import batch_on
+    from repro_torch.models.steps import OPTIMIZER_UPDATE
+    ranges = (ops.SSD_FORWARD, ops.SSD_BACKWARD, OPTIMIZER_UPDATE)
     params, opt_state, step_fn, ds = setup
     batch = batch_on(ds, TRAIN["steps"], dev)
     torch.cuda.synchronize()
@@ -1330,11 +1386,30 @@ def train_profile_phase(setup, dev):
         step_fn(params, opt_state, batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    profile_summary("train_profile", prof, 1, wall_ms, "step")
+    range_ms = {r: 0.0 for r in ranges}
+    range_calls = {r: 0 for r in ranges}
+    for e in prof.events():
+        if e.name in range_ms and e.device_type == torch.autograd.DeviceType.CPU:
+            range_ms[e.name] += e.device_time_total / 1e3
+            range_calls[e.name] += 1
+    # the profiler gives a range the kernels PyTorch launched in it, not
+    # those launched through ctypes: the SSD forward's device time is its
+    # own kernels', by name
+    fwd_us, fwd_n = 0.0, 0
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and re.search(r"\bssd_(states|state_pass|scan)_?\w*<", e.key)):
+            fwd_us += e.self_device_time_total
+            fwd_n += e.count
+    range_ms[ops.SSD_FORWARD] = fwd_us / 1e3
+    profile_summary("train_profile", prof, 1, wall_ms, "step", skip=ranges,
+                    range_device_ms_per_step=range_ms,
+                    range_calls_per_step=range_calls,
+                    ssd_forward_cuda_launches_per_step=fwd_n)
 
 
 def train_check_phase(dev, label, spec, names, kernel, n_layers=None,
-                      gate="bfloat16"):
+                      gate="bfloat16", reorder=None):
     """Loss, grad norm and the gradients of the leaves ``names`` (name ->
     path in the tree) of one step at full width, depth cut to
     ``n_layers`` if given: the kernel path against the plain path, within
@@ -1348,7 +1423,12 @@ def train_check_phase(dev, label, spec, names, kernel, n_layers=None,
     model deep enough that the two bf16 paths decorrelate: one bf16 ulp
     of a kernel output changes later roundings everywhere, so the bf16
     kernel path deviates from the bf16 plain path about as much as bf16
-    deviates from float32, and one such draw is no bound on another."""
+    deviates from float32, and one such draw is no bound on another.
+
+    ``reorder`` (config fields) gives the plain path another, equally
+    valid order of its sums; its deviation from the plain path is
+    printed, ungated: how far a change of order alone moves these
+    numbers."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_dataset
     from repro_torch.distributed.optimizer import global_norm, tree_leaves
@@ -1362,9 +1442,9 @@ def train_check_phase(dev, label, spec, names, kernel, n_layers=None,
     batch = batch_on(make_dataset("synthetic", cfg, spec["seq"],
                                   spec["batch"]), 0, dev)
 
-    def run(impl, dtype):
+    def run(impl, dtype, c=cfg):
         p = params if dtype is None else _cast(params, dtype)
-        c = cfg if dtype is None else cfg.replace(dtype="float32")
+        c = c if dtype is None else c.replace(dtype="float32")
         for leaf in tree_leaves(p):
             leaf.requires_grad_(True)
         loss, _ = loss_fn(c, p, batch, remat=True, impl=impl)
@@ -1395,6 +1475,11 @@ def train_check_phase(dev, label, spec, names, kernel, n_layers=None,
         extra = {"max_abs_err_kernel_vs_plain_f32": gated,
                  "ratio_bf16_kernel_vs_plain_to_tol":
                      {k: err[k] / tol[k] for k in kern if tol[k] > 0}}
+    if reorder:
+        other = run("reference", None, cfg.replace(**reorder))
+        extra["plain_reordered"] = reorder
+        extra["max_abs_err_plain_reordered_vs_plain"] = {
+            k: max_err(other[k], plain[k]) for k in kern}
     phase(label, arch=cfg.name, n_layers=cfg.n_layers,
           depth_cut_from=full.n_layers, batch=spec["batch"], seq=spec["seq"],
           launches={kernel: n_kernel}, gated_on=gate, **extra,
@@ -1476,7 +1561,7 @@ def main() -> int:
         "w_x": ("layers", "ssm", "w_x"),
         "out_proj": ("layers", "ssm", "out_proj"),
         "A_log": ("layers", "ssm", "A_log"), "embed": ("embed", "table")},
-        "ssd_scan", n_layers=TRAIN_CHECK_LAYERS)
+        "ssd_scan", n_layers=TRAIN_CHECK_LAYERS, reorder={"ssm_chunk": 128})
     torch.cuda.empty_cache()
     train_dense_phase(dev)
     torch.cuda.empty_cache()

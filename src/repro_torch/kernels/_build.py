@@ -51,7 +51,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_F, _F, _I, _P],
     },
     "ssd_scan": {
-        "ssd_scan_launch": [_P] * 5 + [_I] * 8 + [_P],
+        "ssd_scan_launch": [_P] * 7 + [_I] * 8 + [_P],
     },
 }
 

@@ -35,6 +35,10 @@ from .ssd_scan import ssd_scan as _ssd_cuda
 
 Impl = str  # 'auto' | 'cuda' | 'reference'
 IMPLS = ("auto", "cuda", "reference")
+# profiler ranges around the SSD kernel and its plain backward (a
+# profile's device time under each name is what they launched)
+SSD_FORWARD = "ssd_scan.forward"
+SSD_BACKWARD = "ssd_scan.backward_plain"
 
 
 def _use_kernel(impl: Impl, x: torch.Tensor) -> bool:
@@ -83,13 +87,15 @@ class _SSDScan(torch.autograd.Function):
     def forward(ctx, x, a, b, c, chunk):
         ctx.save_for_backward(x, a, b, c)
         ctx.chunk = chunk
-        return _ssd_cuda(x, a, b, c, chunk=chunk)
+        with torch.profiler.record_function(SSD_FORWARD):
+            return _ssd_cuda(x, a, b, c, chunk=chunk)
 
     @staticmethod
     def backward(ctx, grad_out):
-        grads = _grad_of_plain(
-            lambda x, a, b, c: ref.ssd_chunked(x, a, b, c, chunk=ctx.chunk),
-            ctx.saved_tensors, ctx.needs_input_grad[:4], grad_out)
+        with torch.profiler.record_function(SSD_BACKWARD):
+            grads = _grad_of_plain(
+                lambda x, a, b, c: ref.ssd_chunked(x, a, b, c, chunk=ctx.chunk),
+                ctx.saved_tensors, ctx.needs_input_grad[:4], grad_out)
         return (*grads, None)
 
 

@@ -412,3 +412,103 @@ def ssd_chunked(
     if return_final_state:
         return y, h
     return y
+
+
+# The SSD scan in the kernel's three stages (csrc/ssd_scan.cu), float32:
+# per chunk its inclusive cumsum of the log decays and its local state
+# (stage 1), the state carried into each chunk (stage 2), and each
+# chunk's output from its own tokens and the carried state (stage 3).
+# Every exponent is clamped at 0, as in the kernel. Composed they are
+# ssd_chunked's function; the CPU tests hold them to it piece by piece.
+
+def _pad_chunks(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``t`` [B, L, ...] zero-padded along L to whole chunks, reshaped
+    to [B, nc, chunk, ...] in float32."""
+    L = t.shape[1]
+    pad = (-L) % chunk
+    t = t.float()
+    if pad:
+        t = torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])], 1)
+    return t.reshape((t.shape[0], -1, chunk) + t.shape[2:])
+
+
+def _decay(z: torch.Tensor) -> torch.Tensor:
+    return torch.exp(torch.clamp(z, max=0.0))
+
+
+def ssd_chunk_states(
+    x: torch.Tensor,            # [B, L, H, P]
+    a: torch.Tensor,            # [B, L, H]
+    b: torch.Tensor,            # [B, L, G, N]
+    *,
+    chunk: int,
+):
+    """Stage 1: (acs [B, nc, H, Q], the inclusive cumsum of ``a`` over
+    each zero-padded chunk; states [B, nc, H, P, N], each chunk's local
+    state sum_t exp(acs_last - acs_t) x_t b_t^T)."""
+    H, G = x.shape[2], b.shape[2]
+    xf = _pad_chunks(x, chunk)                                  # [B,nc,Q,H,P]
+    bf = _pad_chunks(b, chunk).repeat_interleave(H // G, dim=3)
+    acs = torch.cumsum(_pad_chunks(a, chunk).permute(0, 1, 3, 2), dim=-1)
+    w = _decay(acs[..., -1:] - acs)                             # [B,nc,H,Q]
+    states = torch.einsum("bnhq,bnqhk,bnqhp->bnhpk", w, bf, xf)
+    return acs, states
+
+
+def ssd_state_pass(states: torch.Tensor, acs: torch.Tensor):
+    """Stage 2: (h_in [B, nc, H, P, N], the state carried into each
+    chunk, zero into the first; the final state [B, H, P, N]), from
+    h_in[c] = exp(acs_last[c - 1]) h_in[c - 1] + states[c - 1]."""
+    keep = _decay(acs[..., -1])                                 # [B,nc,H]
+    h = torch.zeros_like(states[:, 0])
+    h_in = []
+    for n in range(states.shape[1]):
+        h_in.append(h)
+        h = h * keep[:, n, :, None, None] + states[:, n]
+    return torch.stack(h_in, dim=1), h
+
+
+def ssd_chunk_scan(
+    x: torch.Tensor,            # [B, L, H, P]
+    b: torch.Tensor,            # [B, L, G, N]
+    c: torch.Tensor,            # [B, L, G, N]
+    acs: torch.Tensor,          # [B, nc, H, Q] from ssd_chunk_states
+    h_in: torch.Tensor,         # [B, nc, H, P, N] from ssd_state_pass
+) -> torch.Tensor:
+    """Stage 3: y [B, L, H, P] float32, y_i = sum_{j <= i} (C_i . B_j)
+    exp(acs_i - acs_j) x_j + exp(acs_i) C_i . h_in^T within each chunk;
+    C . B^T once per group."""
+    Bsz, L, H, P = x.shape
+    G = b.shape[2]
+    chunk = acs.shape[-1]
+    xf = _pad_chunks(x, chunk)                                  # [B,nc,Q,H,P]
+    bf, cf = _pad_chunks(b, chunk), _pad_chunks(c, chunk)       # [B,nc,Q,G,N]
+    cb = torch.einsum("bnqgk,bnsgk->bngqs", cf, bf)             # [B,nc,G,Q,Q]
+    cb = cb.repeat_interleave(H // G, dim=2)                    # [B,nc,H,Q,Q]
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=x.device))
+    scores = torch.where(causal, cb * _decay(acs[..., :, None]
+                                             - acs[..., None, :]),
+                         cb.new_zeros(()))
+    y = torch.einsum("bnhqs,bnshp->bnqhp", scores, xf)
+    cr = cf.repeat_interleave(H // G, dim=3)                    # [B,nc,Q,H,N]
+    y = y + torch.einsum("bnqhk,bnhpk,bnhq->bnqhp", cr, h_in, _decay(acs))
+    return y.reshape(Bsz, -1, H, P)[:, :L]
+
+
+def ssd_chunked_pieces(
+    x: torch.Tensor,            # [B, L, H, P]
+    a: torch.Tensor,            # [B, L, H]
+    b: torch.Tensor,            # [B, L, G, N]
+    c: torch.Tensor,            # [B, L, G, N]
+    *,
+    chunk: int = 256,
+    return_final_state: bool = False,
+):
+    """``ssd_chunked`` composed from the kernel's three stages: y in x's
+    dtype (and the final state with ``return_final_state``)."""
+    chunk = max(1, min(chunk, x.shape[1]))
+    acs, states = ssd_chunk_states(x, a, b, chunk=chunk)
+    h_in, final = ssd_state_pass(states, acs)
+    y = ssd_chunk_scan(x, b, c, acs, h_in).to(x.dtype)
+    return (y, final) if return_final_state else y

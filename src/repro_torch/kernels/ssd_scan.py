@@ -12,8 +12,12 @@ is exact and ``chunk > L`` acts as ``chunk = L``.
 
 On a CUDA tensor the wrapper launches ``csrc/ssd_scan.cu`` or raises;
 on a CPU tensor it runs the plain version (``ref.ssd_chunked``). The
-kernel has no backward: ``ops.ssd`` wraps it in an autograd Function
-whose backward differentiates the plain version.
+kernel runs the three stages of ``ref.ssd_chunked_pieces`` (chunk
+states, the state pass, the chunk scan) as :func:`cuda_launches` CUDA
+launches, with float32 scratch the wrapper allocates
+(:func:`scratch_sizes`). The kernel has no backward: ``ops.ssd`` wraps
+it in an autograd Function whose backward differentiates the plain
+version.
 """
 
 from __future__ import annotations
@@ -23,8 +27,33 @@ import torch
 from . import _build, ref
 from .paged_attention import _DTYPES
 
-#: kernel launches on CUDA tensors (never counts the plain version)
+#: calls that launched the kernel on CUDA tensors (one per call, however
+#: many CUDA launches it takes; never counts the plain version)
 launches = 0
+
+
+def n_chunks(L: int, chunk: int) -> int:
+    """Chunks of a sequence of ``L`` tokens (``chunk > L`` acts as L)."""
+    return -(-L // max(1, min(chunk, L)))
+
+
+def scratch_sizes(B: int, L: int, H: int, P: int, N: int,
+                  chunk: int) -> dict:
+    """float32 elements of the kernel's scratch: ``states``, the carried
+    [P, N] state after every chunk but the last, per (batch, head), then
+    as many bf16 (the third bf16 part of each, for the tensor-core
+    products), and ``lcs``, the cumsum of ``a`` over each
+    chunk."""
+    Q = max(1, min(chunk, L))
+    nc = n_chunks(L, chunk)
+    n_states = B * (nc - 1) * H * P * N           # even: P >= 16
+    return {"states": n_states + n_states // 2, "lcs": B * nc * H * Q}
+
+
+def cuda_launches(L: int, chunk: int) -> int:
+    """CUDA launches of one kernel call: chunk states, the state pass
+    (only with more than one chunk) and the chunk scan."""
+    return 3 if n_chunks(L, chunk) > 1 else 2
 
 
 def ssd_scan(
@@ -62,13 +91,17 @@ def ssd_scan(
             or P * N > 8192:
         raise ValueError(f"kernel takes P in (16, 32, 64, 128) and N a multiple "
                          f"of 4 in [4, 256] with P * N <= 8192; got P {P}, N {N}")
-    x, a, b, c = x.contiguous(), a.contiguous(), b.contiguous(), c.contiguous()
+    x, a, b, c = (_build.aligned16(t.contiguous()) for t in (x, a, b, c))
     out = torch.empty_like(x)
     if B == 0 or L == 0 or H == 0:
         return out
+    sizes = scratch_sizes(B, L, H, P, N, chunk)
+    states = torch.empty(sizes["states"], dtype=torch.float32, device=x.device)
+    lcs = torch.empty(sizes["lcs"], dtype=torch.float32, device=x.device)
     fn = _build.load("ssd_scan", "ssd_scan_launch")
     err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-             out.data_ptr(), B, L, H, G, P, N, min(chunk, L), _DTYPES[x.dtype],
+             out.data_ptr(), states.data_ptr(), lcs.data_ptr(), B, L, H, G,
+             P, N, min(chunk, L), _DTYPES[x.dtype],
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd_scan")
     global launches

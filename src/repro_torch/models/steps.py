@@ -17,6 +17,9 @@ from ..distributed.optimizer import tree_leaves, tree_map
 from .config import ModelConfig
 from .registry import get_api
 
+# profiler range around the optimizer update of a train step
+OPTIMIZER_UPDATE = "optimizer.update"
+
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -71,8 +74,9 @@ def make_train_step(cfg: ModelConfig, optimizer, *, remat: bool = True,
             p.requires_grad_(True)
         loss, metrics = loss_fn(cfg, params, batch, remat=remat, impl=impl)
         grads = grads_of(loss, params)
-        params, opt_state, opt_metrics = optimizer.update(
-            params, grads, opt_state)
+        with torch.profiler.record_function(OPTIMIZER_UPDATE):
+            params, opt_state, opt_metrics = optimizer.update(
+                params, grads, opt_state)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(opt_metrics)
         return params, opt_state, metrics

@@ -287,20 +287,29 @@ def _ssd_inputs(gen, dev, B, L, H, G, P, N, dtype):
     (2, 40, 4, 2, 16, 32, 64),       # L < chunk
     (1, 1000, 80, 1, 64, 128, 256),  # mamba2-2.7b, ragged
     (1, 512, 64, 1, 64, 64, 256),    # zamba2
+    (2, 250, 8, 2, 32, 256, 100),    # N 256; chunk 100, not a multiple of 16
+    (1, 1024, 8, 2, 16, 12, 64),     # L = 16 chunks; N 12 pads to 16
+    (2, 65, 4, 4, 128, 4, 16),       # N 4, H / G 1, L = 4 chunks + 1
 ])
 def test_ssd_kernel_matches_plain(cuda, B, L, H, G, P, N, Q, dtype):
+    """Against ref.ssd_chunked and the kernel's stages in plain form
+    (ref.ssd_chunked_pieces); two calls give the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     x, a, b, c = _ssd_inputs(gen, cuda, B, L, H, G, P, N, dtype)
     before = ssd_scan.launches
     got = ops.ssd(x, a, b, c, chunk=Q, impl="cuda")
+    again = ops.ssd(x, a, b, c, chunk=Q, impl="cuda")
     want = ops.ssd(x, a, b, c, chunk=Q, impl="reference")
+    pieces = ref.ssd_chunked_pieces(x, a, b, c, chunk=Q)
     torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 1
+    assert ssd_scan.launches == before + 2
     assert got.dtype == dtype and got.shape == x.shape
-    tol = dict(TOL[dtype])
-    if dtype == torch.float32:
-        tol["atol"] = max(tol["atol"], 1e-5 * want.abs().max().item())
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
+    for oracle in (want, pieces):
+        tol = dict(TOL[dtype])
+        if dtype == torch.float32:
+            tol["atol"] = max(tol["atol"], 1e-5 * oracle.abs().max().item())
+        torch.testing.assert_close(got.float(), oracle.float(), **tol)
 
 
 def _grads(fn, inputs, r):
