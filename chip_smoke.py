@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/H100 port: builds the CUDA kernels,
 holds each against its plain PyTorch version, times them, serves
-full-width smollm-135m through the paged and the slot-ring engines, and
+full-width smollm-135m through the paged and the slot-ring engines and
+through a prefill/decode-disaggregated cluster of paged engines, and
 trains full-width mamba2-2.7b and smollm-135m, on one GPU.
 
     python3 chip_smoke.py
@@ -71,29 +72,44 @@ first that fails:
                  ungated, the plain path summed over other key blocks
                  against itself (how far an equally valid order moves
                  the logits);
-11. train        mamba2-2.7b at full width and depth (64 layers), bf16,
+11. cluster_pd   full-width smollm-135m, bf16, behind the cluster
+                 driver's pd_disaggregated routing: one prefill and two
+                 decode paged engines on the card, 24 requests under
+                 DriftScheduler("sjf"); each prefilled sequence's KV
+                 pages move on the card to a decode engine; every
+                 request handed off once, chunked-prefill launches
+                 checked against the prefill engine's chunks and
+                 batched-decode launches against the decode engines'
+                 iterations, no other kernel, every pool's pages
+                 conserved;
+12. cluster_pd_check  one sequence prefilled on the prefill engine: its
+                 extracted pages bit-equal to the source pool's, the
+                 destination's pages after injection bit-equal to the
+                 payload, and one batched-decode step of it on each
+                 engine giving bit-identical logits;
+13. train        mamba2-2.7b at full width and depth (64 layers), bf16,
                  through the training launcher's code: 6 AdamW steps on
                  batch 2 x 2048 synthetic tokens with per-layer remat;
                  SSD launches exactly 2 x 64 x 6 and no attention kernel;
-12. train_profile  one more step of it under torch.profiler, with the
+14. train_profile  one more step of it under torch.profiler, with the
                  device time launched inside the SSD kernel's forward,
                  the plain SSD backward and the AdamW update;
-13. train_check  one step's loss, grad norm and gradients of w_x,
+15. train_check  one step's loss, grad norm and gradients of w_x,
                  out_proj, A_log and the embedding at full width, depth
                  cut to 8 layers: the kernel path against the plain path,
                  within the plain path's own bf16-vs-float32 deviation;
                  beside it, ungated, the plain path at chunk 128 (the
                  same function, summed in another order) against itself;
-14. train_dense  smollm-135m at full width, batch 8 x 512, 4 steps;
+16. train_dense  smollm-135m at full width, batch 8 x 512, 4 steps;
                  flash-attention launches exactly 2 x 30 x 4;
-15. train_dense_check  one step of it at full depth (30 layers): loss,
+17. train_dense_check  one step of it at full depth (30 layers): loss,
                  grad norm and the gradients of wq, wk, wv and the
                  embedding, kernel path against plain path as train_check,
                  but gated in float32 (through 30 bf16 layers the two
                  bf16 paths decorrelate; their deviation is printed).
 
-Each engine and train phase sets every kernel's launch count to 0 just
-before it runs and reads the counts just after.
+Each engine, cluster and train phase sets every kernel's launch count
+to 0 just before it runs and reads the counts just after.
 
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1294,6 +1310,196 @@ def engine_check_phase(cfg, params, eng, dev):
 
 
 # ---------------------------------------------------------------------------
+# prefill/decode disaggregation over the paged engines
+# ---------------------------------------------------------------------------
+
+def cluster_pd_phase(cfg, params, dev):
+    """One prefill engine and two decode engines (PAGED_ENGINE each) on
+    the card behind ``make_engine_cluster``'s pd_disaggregated routing:
+    every request prefills on engine 0 (chunked-prefill kernel), its
+    first token hands it off, its KV pages are gathered off the source
+    pool into tensors on the card and scattered into a decode engine's
+    pool, which decodes it (batched-decode kernel)."""
+    from repro_torch.cluster.driver import make_engine_cluster
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.workload.generator import GeneratorConfig, WorkloadGenerator
+    drv = make_engine_cluster(
+        cfg, params, 3, policy="sjf", routing="pd_disaggregated",
+        n_prefill_replicas=1, engine_config=EngineConfig(**PAGED_ENGINE),
+        device=dev)
+    pre = drv.replicas[0].engine
+    decoders = [rep.engine for rep in drv.replicas[1:]]
+    moved = []                         # KV bytes of each handoff
+    extract = pre.extract_sequence
+
+    def counted_extract(slot):
+        payload = extract(slot)
+        if not (payload["k"].is_cuda and payload["v"].is_cuda):
+            fail("cluster_pd: a KV payload left the card")
+        moved.append(payload["k"].nbytes + payload["v"].nbytes)
+        return payload
+    pre.extract_sequence = counted_extract
+    rounds = 0
+    step = drv.step
+
+    def counted_step(now):
+        nonlocal rounds
+        rounds += 1
+        return step(now)
+    drv.step = counted_step
+
+    gen = WorkloadGenerator(GeneratorConfig(
+        total_requests=24, calibration_requests=24, max_tokens=64, seed=0,
+        shared_prefix_tokens=64))
+    reqs = [r for _, r in gen.plan(seed=0).calibration]
+    for i, r in enumerate(reqs):
+        if not drv.submit(r, 1e-6 * i):
+            fail(f"cluster_pd: request {i} was shed")
+    metrics, wall, launches = drain(drv)
+
+    done = [r for rep in drv.replicas for r in rep.sched.completed]
+    tokens = sum(r.observed_output_tokens for r in done)
+    engines = [dict(rid=rep.rid, role=rep.role.value,
+                    iterations=rep.engine.step_count,
+                    decode_iterations=rep.engine.n_decode_launches,
+                    prefill_chunks=rep.engine.n_prefill_launches,
+                    completed=len(rep.sched.completed),
+                    handoffs_out=rep.n_handoffs_out,
+                    handoffs_in=rep.n_handoffs_in)
+               for rep in drv.replicas]
+    decode_iterations = sum(e.n_decode_launches for e in decoders)
+    phase("cluster_pd", arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+          engines=engines, wall_s=wall, rounds=rounds,
+          completed=metrics.n_completed, tokens=tokens,
+          tokens_per_s=tokens / wall, ms_per_round=1e3 * wall / rounds,
+          handoffs=drv.n_handoffs, kv_bytes_moved=sum(moved),
+          kv_bytes_per_handoff=sum(moved) / max(len(moved), 1),
+          prefix=pre.prefix_cache_stats(), launches=launches)
+    if metrics.n_completed != len(reqs) or len(done) != len(reqs):
+        fail(f"cluster_pd completed {metrics.n_completed} of {len(reqs)}")
+    if drv.n_handoffs != len(reqs) or len(moved) != len(reqs) or any(
+            r.prefill_rid != 0 or r.decode_rid not in (1, 2)
+            or r.handoff_time is None for r in done):
+        fail(f"cluster_pd: {drv.n_handoffs} handoffs ({len(moved)} "
+             f"payloads) for {len(reqs)} requests, each wants one from "
+             "engine 0 to a decode engine")
+    if pre.n_decode_launches:
+        fail(f"cluster_pd: the prefill engine ran {pre.n_decode_launches} "
+             "decode iterations")
+    if pre.n_prefill_launches <= 0 or any(e.n_prefill_launches
+                                          for e in decoders):
+        fail("cluster_pd: prefill chunks "
+             f"{[e['prefill_chunks'] for e in engines]}, want them on the "
+             "prefill engine only")
+    if launches["chunked_prefill_attention"] != \
+            cfg.n_layers * pre.n_prefill_launches:
+        fail(f"cluster_pd: prefill launches {launches} != {cfg.n_layers} x "
+             f"{pre.n_prefill_launches} prefill chunks")
+    if launches["batched_paged_decode_attention"] != \
+            cfg.n_layers * decode_iterations:
+        fail(f"cluster_pd: decode launches {launches} != {cfg.n_layers} x "
+             f"{decode_iterations} decode iterations")
+    if launches["paged_decode_attention"] or launches["flash_attention"] \
+            or launches["ssd_scan"]:
+        fail(f"cluster_pd launched a kernel of another path: {launches}")
+    for rep in drv.replicas:
+        e = rep.engine
+        held = e.alloc.free_pages + e.ledger.owned_pages() + (
+            e.prefix_tree.total_pages() if e.prefix_tree else 0)
+        if held != e.alloc.n_pages:
+            fail(f"cluster_pd: engine {rep.rid} holds {held} of "
+                 f"{e.alloc.n_pages} pages")
+    return drv
+
+
+def cluster_pd_check_phase(cfg, params, drv, dev):
+    """One more sequence through the drained cluster's prefill engine
+    and, by hand, into decode engine 1: the payload against the source
+    pool's pages, the destination's pages against the payload, and one
+    batched-decode step of the sequence on each engine (same kernel,
+    same inputs, batch 1) against each other, all bit for bit."""
+    from repro_torch.models import transformer
+    from repro_torch.workload.generator import GeneratorConfig, WorkloadGenerator
+    src, dst = drv.replicas[0].engine, drv.replicas[1].engine
+    gen = WorkloadGenerator(GeneratorConfig(
+        total_requests=4, calibration_requests=4, max_tokens=64, seed=1,
+        shared_prefix_tokens=64))
+    plan = gen.plan(seed=1).calibration
+    # a request whose shared prefix the source's tree holds, if any: its
+    # payload then carries tree pages as well as its own
+    _, req = next(((t, r) for t, r in plan if src.prefix_cached_tokens(r)),
+                  plan[0])
+    got = {}
+
+    def capture(slot, r, now):
+        pages = list(src.ledger.table(slot))
+        payload = src.extract_sequence(slot)
+        got.update(pages=pages, payload=payload, equal=all(
+            torch.equal(payload["k"][:, i], src.pool.k[:, p])
+            and torch.equal(payload["v"][:, i], src.pool.v[:, p])
+            for i, p in enumerate(pages)))
+        return True
+    src.handoff_hook = capture
+    now = float(src.step_count)
+    src.sched.submit(req, now)
+    for _ in range(16):
+        if got:
+            break
+        src.step(now)
+        now += 1.0
+    if not got:
+        fail("cluster_pd_check: the sequence never finished its prefill")
+    if not got["equal"]:
+        fail("cluster_pd_check: the extracted KV differs from the source's "
+             "pages")
+    payload = got["payload"]
+
+    dst.accept_handoff(req, payload)
+    if dst.sched.dispatch(now) is not req:
+        fail("cluster_pd_check: the handed-off request was not dispatched")
+    slot = dst.free_slots()[0]
+    dst._admit_prefilled(req, slot, dst.pop_pending_injection(req.req_id), now)
+    pages = list(dst.ledger.table(slot))
+    index = torch.tensor(pages, device=dev)
+    injected = (torch.equal(dst.pool.k[:, index], payload["k"])
+                and torch.equal(dst.pool.v[:, index], payload["v"]))
+
+    def decode(eng, pages):
+        table = torch.full((1, eng.alloc.pages_per_seq), eng.pool.n_pages - 1,
+                           dtype=torch.int32)       # padding: scratch page
+        table[0, :len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        return transformer.decode_step_paged(
+            cfg, params, {"k": eng.pool.k, "v": eng.pool.v},
+            torch.tensor([payload["last_token"]], device=dev), table.to(dev),
+            torch.tensor([payload["seq_len"]], dtype=torch.int32, device=dev),
+            max_pages=eng.alloc.pages_per_seq)
+
+    reset_launches()
+    want, logits = decode(src, got["pages"]), decode(dst, pages)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    dst._release_slot(slot)
+    phase("cluster_pd_check", seq_len=payload["seq_len"],
+          prompt_len=payload["prompt_len"],
+          cached_prefix_tokens=req.cached_prompt_tokens, pages=len(pages),
+          kv_bytes=payload["k"].nbytes + payload["v"].nbytes,
+          source_pages=got["pages"], destination_pages=pages,
+          extract_equal=got["equal"], inject_equal=injected,
+          logits_equal=torch.equal(logits, want),
+          max_abs_logit_err=max_err(logits, want), launches=launches)
+    if not injected:
+        fail("cluster_pd_check: the destination's pages differ from the "
+             "payload")
+    if launches["batched_paged_decode_attention"] != 2 * cfg.n_layers or \
+            sum(launches.values()) != 2 * cfg.n_layers:
+        fail(f"cluster_pd_check: launches {launches}, want "
+             f"{2 * cfg.n_layers} batched-decode launches and no other")
+    if not torch.equal(logits, want):
+        fail("cluster_pd_check: decode logits differ between the engines "
+             f"(max abs err {max_err(logits, want)})")
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -1549,7 +1755,9 @@ def main() -> int:
     slot_launches = engine_slot_phase(cfg, params, dev)
     engine_profile_phase(cfg, params, dev, "engine_slot_profile", SLOT_ENGINE)
     engine_slot_check_phase(cfg, params, dev)
-    del params
+    drv = cluster_pd_phase(cfg, params, dev)
+    cluster_pd_check_phase(cfg, params, drv, dev)
+    del params, drv
     torch.cuda.empty_cache()
 
     _, setup = train_phase(dev)

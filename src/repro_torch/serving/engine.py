@@ -37,10 +37,19 @@ and requests.
   cached boundary; freshly written full prefix pages are donated at
   prefill completion and the pin is released at retirement.
 
+* P/D disaggregation (paged only; driven by ``cluster/driver.py``): a
+  ``handoff_hook`` on a prefill engine takes a request over the moment
+  its first token exists; :meth:`extract_sequence` copies the slot's
+  pages off the pool as tensors on the engine's device (the payload
+  layout of the JAX engine, whose arrays are numpy), the slot is
+  released, and :meth:`accept_handoff` on a decode engine queues the
+  request until a slot dispatches it and :meth:`_admit_prefilled`
+  writes the payload into freshly allocated pages.
+
 The pool holds one extra page the allocator never hands out; inactive
 slots scatter their masked decode writes there. Both caches are updated
-in place. The other model families and the P/D primitives come with
-later slices (ROADMAP.md).
+in place. The other model families come with later slices
+(ROADMAP.md).
 
 EOS: with randomly-initialised models there is no semantic EOS, so
 requests stop at their ground-truth output length (oracle EOS, clipped
@@ -154,6 +163,12 @@ class ServingEngine:
         self.n_prefill_launches = 0
         self.n_decode_launches = 0
         self.prefill_chunk_log: List[Tuple[int, int]] = []  # (slot, length)
+        # --- P/D disaggregation plumbing (cluster driver) ---
+        # called as hook(slot, req, now) when a slot's prefill completes;
+        # returning True means the driver took the request over (KV
+        # extracted for transfer) and the engine must not decode it
+        self.handoff_hook = None
+        self._pending_injections: Dict = {}   # req_id -> KV payload
         # --- prefix-cache counters (mirror WorkerSimulator's) ---
         self.prefix_tree = None
         self.n_prefix_hits = 0
@@ -377,8 +392,9 @@ class ServingEngine:
             self._emit_first_token(slot, int(tok[0]), now)
 
     def _emit_first_token(self, slot: int, tok: int, now: float) -> None:
-        """Prefill-completion bookkeeping: first token and the honest
-        TTFT anchor."""
+        """Prefill-completion bookkeeping: first token, honest TTFT
+        anchor, and the P/D handoff hook (a hooked request leaves for a
+        decode replica instead of joining this engine's decode set)."""
         st = self.slots[slot]
         st.generated = 1                       # prefill emitted one token
         st.last_token = tok
@@ -390,6 +406,114 @@ class ServingEngine:
                             rid=self.trace_rid,
                             tenant=st.req.tenant.label,
                             ttft=now - st.req.arrival_time)
+        if self.handoff_hook is not None \
+                and self.handoff_hook(slot, st.req, now):
+            self._release_slot(slot)
+
+    # --- P/D disaggregation: KV extraction / injection --------------------
+    def _release_slot(self, slot: int) -> None:
+        """Free a slot without completing its request (the request
+        lives on elsewhere — P/D handoff or failure reroute): no
+        ``sched.complete``, so no drift feedback fires here."""
+        st = self.slots[slot]
+        if self.ecfg.paged:
+            self.ledger.free(slot)
+        self._join_order.remove(slot)
+        st.req = None
+        st.generated = 0
+        st.target = 0
+        st.prefill_remaining = 0
+        st.cached_tokens = 0
+        st.pending_prefill = False
+        st.tokens = None
+
+    def _slot_pages(self, slot: int) -> torch.Tensor:
+        """The slot's page table as one int64 index tensor on the
+        engine's device (one host-to-device copy per handoff)."""
+        return torch.tensor(self.ledger.table(slot), dtype=torch.int64,
+                            device=self.device)
+
+    def extract_sequence(self, slot: int) -> Dict:
+        """Snapshot a prefilled slot's state for a P/D handoff: the
+        sequence's page *contents* gathered off the pool (the real KV
+        page movement — prefix-tree pages are copied too, the receiver
+        gets private pages) plus the decode-resume scalars. ``k`` and
+        ``v`` are ``[L, n_seq_pages, page, Hk, D]`` tensors on the
+        engine's device: copies (index gathers), so the slot's pages
+        may be reused as soon as it is released."""
+        if not self.ecfg.paged:
+            raise ValueError("KV extraction requires the paged pool")
+        st = self.slots[slot]
+        pages = self._slot_pages(slot)
+        return {
+            "k": self.pool.k[:, pages],
+            "v": self.pool.v[:, pages],
+            "seq_len": st.bucket,          # resident tokens (whole bucket)
+            "bucket": st.bucket,
+            "prompt_len": st.prompt_len,
+            "last_token": st.last_token,
+            "generated": st.generated,
+            "target": st.target,
+        }
+
+    def accept_handoff(self, req: Request, payload: Dict) -> None:
+        """Queue a prefilled request whose KV transfer just landed:
+        back of its tenant queue at the original enqueue timestamp,
+        estimate untouched; the KV payload is injected into the paged
+        pool when a slot dispatches it."""
+        self._pending_injections[req.req_id] = payload
+        self.sched.queues.enqueue(req, req.enqueue_time)
+
+    def pop_pending_injection(self, req_id: int) -> Optional[Dict]:
+        """Detach a queued request's undispatched KV payload (the
+        cluster driver re-transfers it when the request is stolen off
+        this engine's queue)."""
+        return self._pending_injections.pop(req_id, None)
+
+    def _admit_prefilled(self, req: Request, slot: int, payload: Dict,
+                         now: float) -> None:
+        """Open a slot for a request that already prefilled elsewhere:
+        allocate pages, write the transferred KV into them in place, and
+        enter decode directly (no prefill chunks, no first token — both
+        happened on the source replica)."""
+        if not self.ecfg.paged:
+            raise ValueError("KV injection requires the paged pool")
+        self.ledger.admit(slot, payload["seq_len"], (), now)
+        pages = self._slot_pages(slot)
+        for name in ("k", "v"):
+            pool = getattr(self.pool, name)
+            pool[:, pages] = payload[name].to(device=pool.device,
+                                              dtype=pool.dtype)
+        st = self.slots[slot]
+        st.req = req
+        st.generated = payload["generated"]
+        st.target = payload["target"]
+        st.last_token = payload["last_token"]
+        st.prompt_len = payload["prompt_len"]
+        st.cached_tokens = 0
+        st.prefill_remaining = 0
+        st.pending_prefill = False
+        st.tokens = None
+        st.bucket = payload["bucket"]
+        st.prefill_pos = payload["seq_len"]
+        self._join_order.append(slot)
+        req.state = RequestState.EXECUTING
+        if req.exec_start is None:
+            req.exec_start = now
+
+    def abort_all(self, now: float) -> List[Request]:
+        """Failure path: drop every in-flight slot and pending KV
+        injection; stranded requests go back to the caller (the cluster
+        driver resets and reroutes them). Pool contents die with the
+        replica, so a prefix tree is emptied too."""
+        stranded = []
+        for slot in list(self._join_order):
+            stranded.append(self.slots[slot].req)
+            self._release_slot(slot)
+        self._pending_injections.clear()
+        if self.prefix_tree is not None:
+            self.prefix_tree.clear()
+        return stranded
 
     def _retire(self, slot: int, now: float) -> None:
         st = self.slots[slot]
@@ -402,15 +526,7 @@ class ServingEngine:
                             observed=st.generated, e2e=req.e2e_latency,
                             ttft=req.ttft,
                             inter_token=req.inter_token_latency)
-        if self.ecfg.paged:
-            self.ledger.free(slot)
-        self._join_order.remove(slot)
-        st.req = None
-        st.generated = 0
-        st.target = 0
-        st.prefill_remaining = 0
-        st.cached_tokens = 0
-        st.pending_prefill = False
+        self._release_slot(slot)
 
     # --- main loop ----------------------------------------------------------
     def step(self, now: float) -> int:
@@ -436,7 +552,11 @@ class ServingEngine:
             req = self.sched.dispatch(now)
             if req is None:
                 break
-            self._admit(req, slot, now)
+            payload = self._pending_injections.pop(req.req_id, None)
+            if payload is not None:
+                self._admit_prefilled(req, slot, payload, now)
+            else:
+                self._admit(req, slot, now)
             joined += 1
 
         # chunked prefill: apportion the per-step budget in join order;

@@ -25,11 +25,15 @@ import pytest
 import torch
 
 from repro_torch.configs import smoke_config
+from repro_torch.core.scheduler import DriftScheduler
 from repro_torch.distributed.optimizer import Optimizer, OptimizerConfig
 from repro_torch.kernels import (chunked_prefill, flash_attention, ops,
                                  paged_attention, ref, ssd_scan)
+from repro_torch.models import transformer
 from repro_torch.models.registry import get_api
 from repro_torch.models.steps import make_train_step
+from repro_torch.serving.engine import EngineConfig, ServingEngine
+from repro_torch.workload.generator import GeneratorConfig, WorkloadGenerator
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
@@ -376,3 +380,69 @@ def test_train_step_on_cuda(cuda, arch, seq):
     torch.cuda.synchronize()
     assert getattr(*counter) - before == 2 * 2 * cfg.n_layers
     assert not torch.equal(params["embed"]["table"], w0)
+
+
+def test_pd_extract_and_inject_bit_exact_on_the_card(cuda):
+    """A P/D handoff between two engines on the card: the payload is a
+    copy of the source's pages (on the card), injection writes exactly
+    it into other pages of the destination, and one decode step of the
+    sequence there gives the source's logits bit for bit."""
+    cfg = smoke_config("smollm-135m")
+    params = get_api(cfg).init(cfg, torch.Generator().manual_seed(0),
+                               device=cuda)
+    ecfg = EngineConfig(n_slots=2, max_len=96, prompt_buckets=(32,),
+                        paged=True, page_size=8, chunk_prefill_tokens=16)
+    src, dst = (ServingEngine(cfg, params, DriftScheduler("fifo"), ecfg,
+                              device=cuda) for _ in range(2))
+    gen = WorkloadGenerator(GeneratorConfig(
+        total_requests=1, calibration_requests=1, max_tokens=16, seed=3))
+    (t, req), = gen.plan(seed=3).calibration
+    got = {}
+
+    def hook(slot, r, now):
+        pages = list(src.ledger.table(slot))
+        payload = src.extract_sequence(slot)
+        assert payload["k"].device == cuda
+        for i, p in enumerate(pages):
+            assert torch.equal(payload["k"][:, i], src.pool.k[:, p])
+            assert torch.equal(payload["v"][:, i], src.pool.v[:, p])
+        got.update(payload=payload, pages=pages)
+        return True
+    src.handoff_hook = hook
+    src.sched.submit(req, t)
+    before = chunked_prefill.launches
+    now = 0.0
+    while not got:
+        src.step(now)
+        now += 1.0
+    assert chunked_prefill.launches - before == \
+        cfg.n_layers * src.n_prefill_launches > 0
+    payload = got["payload"]
+
+    dst.alloc.alloc_raw(3)            # the injected pages differ
+    dst.accept_handoff(req, payload)
+    assert dst.sched.dispatch(now) is req
+    slot = dst.free_slots()[0]
+    dst._admit_prefilled(req, slot, dst.pop_pending_injection(req.req_id),
+                         now)
+    pages = dst.ledger.table(slot)
+    assert min(pages) >= 3
+    assert torch.equal(dst.pool.k[:, pages], payload["k"])
+    assert torch.equal(dst.pool.v[:, pages], payload["v"])
+
+    def step(eng, pages):
+        table = torch.full((1, eng.alloc.pages_per_seq), eng.pool.n_pages - 1,
+                           dtype=torch.int32)
+        table[0, :len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        return transformer.decode_step_paged(
+            cfg, params, {"k": eng.pool.k, "v": eng.pool.v},
+            torch.tensor([payload["last_token"]], device=cuda),
+            table.to(cuda),
+            torch.tensor([payload["seq_len"]], dtype=torch.int32,
+                         device=cuda),
+            max_pages=eng.alloc.pages_per_seq)
+    before = paged_attention.launches
+    want, logits = step(src, got["pages"]), step(dst, pages)
+    torch.cuda.synchronize()
+    assert paged_attention.launches - before == 2 * cfg.n_layers
+    assert torch.equal(logits, want)

@@ -241,6 +241,9 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.launch.train, repro_torch.models.mamba2\n"
         "import repro_torch.distributed.optimizer, repro_torch.data.pipeline\n"
         "import repro_torch.distributed.checkpoint, repro_torch.models.steps\n"
+        "import repro_torch.cluster, repro_torch.cluster.driver\n"
+        "import repro_torch.serving.simulator, repro_torch.serving.vector_sim\n"
+        "import repro_torch.obs.report, repro_torch.distributed.fault_tolerance\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -260,7 +263,8 @@ def test_port_sources_never_import_jax_or_repro():
     assert len(files) > 20
     scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
                for p in files if "repro_torch" in p.parts}
-    assert {"distributed", "data", "launch", "models", "kernels"} <= scanned
+    assert {"distributed", "data", "launch", "models", "kernels", "cluster",
+            "obs", "serving", "core", "workload"} <= scanned
     for path in files:
         hits = pattern.findall(path.read_text())
         assert not hits, (path, hits)
