@@ -1,8 +1,10 @@
 """Chip smoke test of the PyTorch/H100 port: builds the CUDA kernels,
 holds each against its plain PyTorch version, times them, serves
 full-width smollm-135m through the paged and the slot-ring engines and
-through a prefill/decode-disaggregated cluster of paged engines, and
-trains full-width mamba2-2.7b and smollm-135m, on one GPU.
+through a prefill/decode-disaggregated cluster of paged engines, serves
+full-width minitron-8b (both engines), mamba2-2.7b and zamba2-1.2b
+(slot-ring), and trains full-width mamba2-2.7b and smollm-135m, on one
+GPU.
 
     python3 chip_smoke.py
 
@@ -31,7 +33,12 @@ first that fails:
                  a split edge and mid-split, a batch of empty slots but
                  one) against the plain version and the split-order
                  plain version, two calls bit-identical, the merge
-                 counters left at 0; the SSD scan at
+                 counters left at 0; D 128 at the minitron and zamba2
+                 paths' shapes: both decode kernels at 8 kv heads and
+                 groups 3 and 4, minitron-8b's 128-token chunk at
+                 q_offset 0 and 128, flash attention at L 64 / 256 with
+                 group 4 and zamba2's shared block (32 heads, group 1)
+                 at L 4,608 with its window of 4096; the SSD scan at
                  the JAX test shapes, a ragged L, G 2, L < chunk,
                  mamba2-2.7b's (L 2048 and 1000) and zamba2's shapes,
                  N 256 with a chunk of 100, 16 chunks, and N 4 with
@@ -51,7 +58,10 @@ first that fails:
                  the bytes and FLOPs it needs) and the rates reached in
                  the device time (TFLOP/s, GB/s); chunked prefill also
                  after a 128-token prefix-cache hit, the batched decode
-                 also at long context (8 x 1,900-2,047 tokens);
+                 also at long context (8 x 1,900-2,047 tokens); the
+                 decode call, the chunk and the 64-token flash bucket also
+                 at minitron-8b's heads (D 128, group 4), and the bucket
+                 at zamba2's shared block;
 5. engine        full-width smollm-135m, bf16, 24 requests through
                  DriftScheduler("sjf") and the paged engine, with the
                  kernels' launch counts checked against the iterations;
@@ -87,22 +97,56 @@ first that fails:
                  destination's pages after injection bit-equal to the
                  payload, and one batched-decode step of it on each
                  engine giving bit-identical logits;
-13. train        mamba2-2.7b at full width and depth (64 layers), bf16,
+13. engine_minitron  full-width minitron-8b (32 layers, d_model 4096, 32 q
+                 over 8 kv heads of 128, vocab 256,000; 9.9 B params),
+                 bf16, weights drawn on a generator on the card (seed
+                 printed), through the paged engine on the engine phase's
+                 24 requests: batched-decode launches exactly 32 x decode
+                 iterations, chunked-prefill 32 x chunks, no other
+                 kernel, a prefix-cache hit, every page accounted for;
+                 init seconds and peak memory;
+14. engine_minitron_profile  the same engine under torch.profiler;
+15. engine_minitron_slot  the same requests through the slot-ring
+                 engine: flash launches exactly 32 x prefills, no other;
+16. engine_minitron_check  one prefill chunk and one decode step at full
+                 width, depth cut to 8 layers, from a pool of random K/V:
+                 kernel path against plain path gated in float32, the
+                 bf16 deviation printed;
+17. engine_mamba2  full-width mamba2-2.7b (64 layers), bf16, 24 requests
+                 through the slot-ring engine: no kernel launched (its
+                 prefill scan and decode step are plain, as in JAX);
+                 state bytes per slot, peak memory;
+18. engine_mamba2_profile  the same engine under torch.profiler;
+19. engine_mamba2_check  depth cut to 8 layers, float32: prefill's last
+                 logits and one decode step's logits against
+                 mamba2.forward through the SSD kernel on the same tokens
+                 and one more, within 4x the plain forward's own
+                 deviation when summed over chunks of 128;
+20. engine_zamba2  full-width zamba2-1.2b (38 Mamba layers; the shared
+                 block at width 4096, 32 heads of 128, window 4096,
+                 applied 7 times), bf16, 24 requests through the
+                 slot-ring engine: flash launches exactly 7 x prefills,
+                 no other;
+21. engine_zamba2_profile  the same engine under torch.profiler;
+22. engine_zamba2_check  four full-width 256-token prefills (flash
+                 kernel) and one decode step, kernel path against plain
+                 path gated in float32, the bf16 deviation printed;
+23. train        mamba2-2.7b at full width and depth (64 layers), bf16,
                  through the training launcher's code: 6 AdamW steps on
                  batch 2 x 2048 synthetic tokens with per-layer remat;
                  SSD launches exactly 2 x 64 x 6 and no attention kernel;
-14. train_profile  one more step of it under torch.profiler, with the
+24. train_profile  one more step of it under torch.profiler, with the
                  device time launched inside the SSD kernel's forward,
                  the plain SSD backward and the AdamW update;
-15. train_check  one step's loss, grad norm and gradients of w_x,
+25. train_check  one step's loss, grad norm and gradients of w_x,
                  out_proj, A_log and the embedding at full width, depth
                  cut to 8 layers: the kernel path against the plain path,
                  within the plain path's own bf16-vs-float32 deviation;
                  beside it, ungated, the plain path at chunk 128 (the
                  same function, summed in another order) against itself;
-16. train_dense  smollm-135m at full width, batch 8 x 512, 4 steps;
+26. train_dense  smollm-135m at full width, batch 8 x 512, 4 steps;
                  flash-attention launches exactly 2 x 30 x 4;
-17. train_dense_check  one step of it at full depth (30 layers): loss,
+27. train_dense_check  one step of it at full depth (30 layers): loss,
                  grad norm and the gradients of wq, wk, wv and the
                  embedding, kernel path against plain path as train_check,
                  but gated in float32 (through 30 bf16 layers the two
@@ -319,6 +363,8 @@ def kernel_check_phase(dev):
         (8, 9, 3, 64, 16, 32),     # full-width smollm, the engine's table
         (2, 16, 2, 128, 16, 8),
         (2, 8, 1, 256, 32, 4),     # > 48 KB of shared memory
+        (8, 24, 8, 128, 16, 32),   # full-width minitron-4b, group 3
+        (8, 32, 8, 128, 16, 32),   # full-width minitron-8b, group 4
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, Hk, D, P, pps in shapes_decode:
@@ -378,6 +424,28 @@ def kernel_check_phase(dev):
                                  f"Hk{Hk} D{D} P{P} C{C} softcap={softcap} "
                                  f"poisoned={poisoned}: max abs err {err} > "
                                  f"tol {TOL[dtype]}")
+    # minitron-8b's chunk (group 4, D 128): 128 tokens at q_offset 0 and,
+    # after a prefix-cache hit, at 128
+    for dtype in (torch.float32, torch.bfloat16):
+        for q_offset in (0, 128):
+            for softcap in (None, 30.0):
+                q, k, v, table, off, kv = prefill_inputs(
+                    gen, 1, 128, 32, 8, 128, 16, 32, [q_offset], dtype, dev)
+                pt = poison(table, kv.tolist(), 16, k.shape[0])
+                got = ops.chunked_prefill_attention(
+                    q, k, v, pt, off, kv, logit_softcap=softcap, impl="cuda")
+                want = ops.chunked_prefill_attention(
+                    q, k, v, table, off, kv, logit_softcap=softcap,
+                    impl="reference")
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                key = ("prefill", str(dtype).split(".")[-1])
+                worst[key] = max(worst.get(key, 0.0), err)
+                n_cases += 1
+                if not within(got, want, dtype):
+                    fail(f"prefill kernel vs plain at minitron-8b's chunk: "
+                         f"{dtype} q_offset {q_offset} softcap={softcap}: "
+                         f"max abs err {err} > tol {TOL[dtype]}")
     # the tile edges at q_offset 128 (a prefix-cache hit): ragged row
     # counts, kv_len mid-page and, for the second sequence, before the
     # chunk ends (its later rows must be zeros), poisoned table tails
@@ -449,6 +517,11 @@ def kernel_check_phase(dev):
         (2, 37, 77, 3, 1, 24, dict(prefix_len=70)),
         (1, 90, 150, 32, 8, 80, dict(window=33, prefix_len=5)),
         (1, 40, 90, 8, 2, 256, dict(window=50)),
+        # D 128: minitron-8b's slot-ring buckets (group 4) and zamba2's
+        # shared block (group 1) with its window's edge inside a tile
+        (1, 64, 64, 32, 8, 128, {}),
+        (1, 256, 256, 32, 8, 128, {}),
+        (1, 4608, 4608, 32, 32, 128, dict(window=4096)),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for B, Lq, Lk, H, Hk, D, kw in shapes_flash:
@@ -682,11 +755,19 @@ def kernels_per_call(fn):
                and not e.key.startswith("Memset"))
 
 
-def decode_timing_scene(dev):
-    """The engine's decode call at full width: 8 slots, 9 q over 3 kv
-    heads, D 64, page 16, 32-page tables, bf16, lengths mid-run."""
+# the attention heads (H, Hk, D) of full-width smollm-135m, minitron-8b
+# and zamba2-1.2b's shared block
+SMOLLM_HEADS = (9, 3, 64)
+MINITRON_8B_HEADS = (32, 8, 128)
+ZAMBA2_HEADS = (32, 32, 128)
+
+
+def decode_timing_scene(dev, heads=SMOLLM_HEADS):
+    """The engine's decode call at full width: 8 slots, ``heads`` (9 q
+    over 3 kv heads, D 64, by default), page 16, 32-page tables, bf16,
+    lengths mid-run."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    B, H, Hk, D, P, pps = 8, 9, 3, 64, 16, 32
+    (H, Hk, D), B, P, pps = heads, 8, 16, 32
     lens = [128, 135, 142, 150, 160, 171, 183, 191]
     args = decode_inputs(gen, B, H, Hk, D, P, pps, lens, torch.bfloat16, dev)
     max_pages = 16                    # next power of two over ceil(191/16)
@@ -703,12 +784,12 @@ def long_decode_timing_scene(dev):
     return args, 128                 # next power of two over ceil(2047/16)
 
 
-def prefill_timing_scene(dev, q_offset=0):
+def prefill_timing_scene(dev, q_offset=0, heads=SMOLLM_HEADS):
     """The engine's prefill call at full width: one 128-token chunk (the
     chunk budget) at ``q_offset`` (0, or 128 after a prefix-cache hit:
-    256 resident tokens), bf16."""
+    256 resident tokens), ``heads``, bf16."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    return prefill_inputs(gen, 1, 128, 9, 3, 64, 16, 32, [q_offset],
+    return prefill_inputs(gen, 1, 128, *heads, 16, 32, [q_offset],
                           torch.bfloat16, dev)
 
 
@@ -793,12 +874,13 @@ def sdpa_paged_inputs(q, k, v, table, lens):
             vg.transpose(1, 2).contiguous(), mask[:, None, None])
 
 
-def flash_timing_scene(dev, B, L):
-    """Full-width smollm-135m attention: ``B`` sequences of ``L`` tokens
-    (the slot-ring engine's one-prompt bucket, or the dense trainer's
-    batch), 9 q over 3 kv heads, D 64, causal, bf16."""
+def flash_timing_scene(dev, B, L, heads=SMOLLM_HEADS):
+    """Full-width attention: ``B`` sequences of ``L`` tokens (the
+    slot-ring engine's one-prompt bucket, or the dense trainer's batch),
+    ``heads`` (smollm-135m's 9 q over 3 kv heads, D 64, by default),
+    causal, bf16."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    return flash_inputs(gen, B, L, L, 9, 3, 64, torch.bfloat16, dev)
+    return flash_inputs(gen, B, L, L, *heads, torch.bfloat16, dev)
 
 
 def sdpa_decode_inputs(q, k, v, table, lens, kn, vn):
@@ -855,11 +937,15 @@ def kernel_times_phase(dev):
     rows = []
 
     # the engine's decode call is the table's row; 8 sequences of ~2,000
-    # tokens are timed beside it (there the bound is microseconds)
+    # tokens and minitron-8b's heads (D 128, group 4) are timed beside it
+    # (there the bound is microseconds)
     extra = []
-    for scene, path in ((decode_timing_scene, "paged engine (decode)"),
-                        (long_decode_timing_scene,
-                         "long context (8 x 1,900-2,047 tokens)")):
+    for scene, path in (
+            (decode_timing_scene, "paged engine (decode)"),
+            (long_decode_timing_scene,
+             "long context (8 x 1,900-2,047 tokens)"),
+            (functools.partial(decode_timing_scene, heads=MINITRON_8B_HEADS),
+             "paged engine (decode), minitron-8b")):
         (q, k, v, table, lens, kn, vn), mp = scene(dev)
         args = (q, k, v, table, lens, kn, vn)
         got = ops.batched_paged_decode_attention(*args, max_pages=mp,
@@ -886,9 +972,11 @@ def kernel_times_phase(dev):
             bytes=n_bytes, flops=flops))
 
     # the chunk at q_offset 0 is the table's row; the same chunk after a
-    # 128-token prefix-cache hit is timed beside it
-    for q_offset in (0, 128):
-        q, k, v, table, off, kv = prefill_timing_scene(dev, q_offset)
+    # 128-token prefix-cache hit, and minitron-8b's chunk (D 128, group
+    # 4), are timed beside it
+    for q_offset, heads in ((0, SMOLLM_HEADS), (128, SMOLLM_HEADS),
+                            (0, MINITRON_8B_HEADS)):
+        q, k, v, table, off, kv = prefill_timing_scene(dev, q_offset, heads)
         args = (q, k, v, table, off, kv)
         got = ops.chunked_prefill_attention(*args, impl="cuda")
         want = ops.chunked_prefill_attention(*args, impl="reference")
@@ -899,13 +987,14 @@ def kernel_times_phase(dev):
         sq, sk, sv, smask = sdpa_prefill_inputs(*args)
         _, P, Hk, D = k.shape
         n_bytes, flops = prefill_bound(q, off.tolist(), kv.tolist(), P, Hk, D)
-        (extra if q_offset else rows).append(dict(
+        (rows if (q_offset, heads) == (0, SMOLLM_HEADS) else extra).append(dict(
             name="chunked_prefill_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
             replaces="src/repro/kernels/chunked_prefill.py:112",
             max_abs_err=err, q_offset=q_offset, kv_len=int(kv[0]),
             path=("paged engine (prefill chunk after a prefix-cache hit)"
-                  if q_offset else "paged engine (prefill chunks)"),
+                  if q_offset else "paged engine (prefill chunks)")
+            + ("" if heads == SMOLLM_HEADS else ", minitron-8b"),
             **timings(lambda: ops.chunked_prefill_attention(
                 *args, impl="cuda"),
                 lambda: ops.chunked_prefill_attention(
@@ -941,26 +1030,38 @@ def kernel_times_phase(dev):
 
     # the slot-ring engine run prefills 64-token buckets only (its
     # prompts are all <= 64 tokens): that is the main path's shape and
-    # the table's row; the largest bucket, 256, and the dense trainer's
-    # batch 8 x 512 are timed beside it
-    for B, L, path in ((1, 64, "slot-ring engine (prefill)"),
-                       (1, 256, "slot-ring engine (prefill)"),
-                       (8, 512, "trainer (dense forward)")):
-        q, k, v = flash_timing_scene(dev, B, L)
-        got = ops.attention(q, k, v, impl="cuda")
-        want = ops.attention(q, k, v, impl="reference")
+    # the table's row; the largest bucket, 256, the dense trainer's
+    # batch 8 x 512, and minitron-8b's and zamba2-1.2b's 64-token buckets
+    # (D 128; zamba2's shared block with its window of 4096) are timed
+    # beside it
+    for B, L, heads, window, path in (
+            (1, 64, SMOLLM_HEADS, None, "slot-ring engine (prefill)"),
+            (1, 256, SMOLLM_HEADS, None, "slot-ring engine (prefill)"),
+            (8, 512, SMOLLM_HEADS, None, "trainer (dense forward)"),
+            (1, 64, MINITRON_8B_HEADS, None,
+             "slot-ring engine (prefill), minitron-8b"),
+            (1, 64, ZAMBA2_HEADS, 4096,
+             "slot-ring engine (prefill), zamba2-1.2b")):
+        q, k, v = flash_timing_scene(dev, B, L, heads)
+        got = ops.attention(q, k, v, window=window, impl="cuda")
+        want = ops.attention(q, k, v, window=window, impl="reference")
         err = max_err(got, want)
         if not within(got, want, torch.bfloat16):
-            fail(f"flash kernel vs plain at B {B} L {L}: max abs err {err}")
+            fail(f"flash kernel vs plain at B {B} L {L} heads {heads}: max "
+                 f"abs err {err}")
         sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        n_bytes, flops = flash_bound(q, k)
-        (rows if L == 64 else extra).append(dict(
+        n_bytes, flops = flash_bound(q, k, window=window)
+        # SDPA's causal mask is the window's for L <= window
+        (rows if (L, heads) == (64, SMOLLM_HEADS) else extra).append(dict(
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:124",
-            max_abs_err=err, batch=B, tokens=L, path=path,
-            **timings(lambda: ops.attention(q, k, v, impl="cuda"),
-                      lambda: ops.attention(q, k, v, impl="reference"),
+            max_abs_err=err, batch=B, tokens=L, heads=heads, window=window,
+            path=path,
+            **timings(lambda: ops.attention(q, k, v, window=window,
+                                            impl="cuda"),
+                      lambda: ops.attention(q, k, v, window=window,
+                                            impl="reference"),
                       lambda: sdpa(sq, sk, sv, is_causal=True,
                                    enable_gqa=True), flush),
             bytes=n_bytes, flops=flops))
@@ -1027,6 +1128,8 @@ PAGED_ENGINE = dict(paged=True, n_slots=8, max_len=512, page_size=16,
                     prefix_cache=True, prefix_cache_pages=64)
 SLOT_ENGINE = dict(paged=False, n_slots=8, max_len=512,
                    prompt_buckets=(64, 128, 256), chunk_prefill_tokens=128)
+# depth of the minitron-8b and mamba2-2.7b check phases (full width)
+CHECK_LAYERS = 8
 
 
 def kernel_counters():
@@ -1080,6 +1183,53 @@ def drain(eng):
     return metrics, time.perf_counter() - t0, read_launches()
 
 
+def paged_engine_run(label, cfg, params, dev, **fields):
+    """The paged engine (PAGED_ENGINE) on 24 requests (seed 0,
+    ``max_tokens=64``, 64-token shared prefixes, sjf): every request
+    completes, batched decode launched ``n_layers`` x decode iterations
+    and chunked prefill ``n_layers`` x chunks, no other kernel, a
+    prefix-cache hit, and every page accounted for after the run."""
+    eng, sched, reqs = serve(cfg, params, dev, PAGED_ENGINE, 24, 0,
+                             shared_prefix_tokens=64)
+    metrics, wall, launches = drain(eng)
+
+    tokens = sum(r.observed_output_tokens for r in sched.completed)
+    chunk_lens = {}
+    for _, n in eng.prefill_chunk_log:
+        chunk_lens[n] = chunk_lens.get(n, 0) + 1
+    if label != "engine":
+        fields["peak_memory_gb"] = peak_gb()
+    phase(label, arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+          **fields, wall_s=wall, iterations=eng.step_count,
+          decode_iterations=eng.n_decode_launches,
+          prefill_chunks=eng.n_prefill_launches,
+          completed=metrics.n_completed, tokens=tokens,
+          tokens_per_s=tokens / wall, ms_per_iteration=1e3 * wall / eng.step_count,
+          prefix=eng.prefix_cache_stats(), chunk_lengths=chunk_lens,
+          launches=launches)
+    if metrics.n_completed != len(reqs):
+        fail(f"{label} completed {metrics.n_completed} of {len(reqs)}")
+    if launches["batched_paged_decode_attention"] != \
+            cfg.n_layers * eng.n_decode_launches:
+        fail(f"{label}: decode launches {launches} != {cfg.n_layers} x "
+             f"{eng.n_decode_launches} decode iterations")
+    if eng.n_prefill_launches <= 0 or launches["chunked_prefill_attention"] \
+            != cfg.n_layers * eng.n_prefill_launches:
+        fail(f"{label}: prefill launches {launches} != {cfg.n_layers} x "
+             f"{eng.n_prefill_launches} prefill chunks")
+    if launches["paged_decode_attention"] or launches["flash_attention"] \
+            or launches["ssd_scan"]:
+        fail(f"{label}: the paged engine launched a kernel of another path: "
+             f"{launches}")
+    if eng.prefix_cache_stats()["hits"] <= 0:
+        fail(f"{label}: no prefix-cache hit in the engine run")
+    held = eng.alloc.free_pages + eng.ledger.owned_pages() + \
+        eng.prefix_tree.total_pages()
+    if held != eng.alloc.n_pages:
+        fail(f"{label}: {held} of {eng.alloc.n_pages} pages accounted for")
+    return eng, launches
+
+
 def engine_phase(dev):
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_api
@@ -1089,45 +1239,22 @@ def engine_phase(dev):
     params = get_api(cfg).init(cfg, torch.Generator().manual_seed(0), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    eng, sched, reqs = serve(cfg, params, dev, PAGED_ENGINE, 24, 0,
-                             shared_prefix_tokens=64)
-    metrics, wall, launches = drain(eng)
-
-    tokens = sum(r.observed_output_tokens for r in sched.completed)
-    chunk_lens = {}
-    for _, n in eng.prefill_chunk_log:
-        chunk_lens[n] = chunk_lens.get(n, 0) + 1
-    phase("engine", arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
-          init_s=init_s, wall_s=wall, iterations=eng.step_count,
-          decode_iterations=eng.n_decode_launches,
-          prefill_chunks=eng.n_prefill_launches,
-          completed=metrics.n_completed, tokens=tokens,
-          tokens_per_s=tokens / wall, ms_per_iteration=1e3 * wall / eng.step_count,
-          prefix=eng.prefix_cache_stats(), chunk_lengths=chunk_lens,
-          launches=launches)
-    if metrics.n_completed != len(reqs):
-        fail(f"engine completed {metrics.n_completed} of {len(reqs)}")
-    if launches["batched_paged_decode_attention"] != \
-            cfg.n_layers * eng.n_decode_launches:
-        fail(f"decode launches {launches} != {cfg.n_layers} x "
-             f"{eng.n_decode_launches} decode iterations")
-    if eng.n_prefill_launches <= 0 or launches["chunked_prefill_attention"] \
-            != cfg.n_layers * eng.n_prefill_launches:
-        fail(f"prefill launches {launches} != {cfg.n_layers} x "
-             f"{eng.n_prefill_launches} prefill chunks")
-    if launches["paged_decode_attention"] or launches["flash_attention"] \
-            or launches["ssd_scan"]:
-        fail(f"the paged engine launched a kernel of another path: {launches}")
-    if eng.prefix_cache_stats()["hits"] <= 0:
-        fail("no prefix-cache hit in the engine run")
+    eng, launches = paged_engine_run("engine", cfg, params, dev,
+                                     init_s=init_s)
     return cfg, params, eng, launches
 
 
-def engine_slot_phase(cfg, params, dev):
+def engine_slot_phase(cfg, params, dev, label="engine_slot",
+                      flash_per_prefill=None, gen_kw=None, **fields):
     """The slot-ring engine (paged=False) on the same model: each
     admission prefills its bucket in one shot (one flash-attention
-    launch per layer), then decodes from the contiguous cache."""
-    eng, sched, reqs = serve(cfg, params, dev, SLOT_ENGINE, 24, 0)
+    launch per attention layer: ``flash_per_prefill``, default
+    ``n_layers``; 0 for an SSM), then decodes from the contiguous cache
+    (or the O(1) states). ``gen_kw`` goes to the request generator."""
+    if flash_per_prefill is None:
+        flash_per_prefill = cfg.n_layers
+    eng, sched, reqs = serve(cfg, params, dev, SLOT_ENGINE, 24, 0,
+                             **(gen_kw or {}))
     metrics, wall, launches = drain(eng)
     tokens = sum(r.observed_output_tokens for r in sched.completed)
     # a request's first token comes from its one single-shot prefill
@@ -1138,29 +1265,38 @@ def engine_slot_phase(cfg, params, dev):
                   if max(r.prompt_tokens, 1) <= b),
                  SLOT_ENGINE["prompt_buckets"][-1])
         buckets[b] = buckets.get(b, 0) + 1
-    phase("engine_slot", arch=cfg.name, n_layers=cfg.n_layers,
+    phase(label, arch=cfg.name, n_layers=cfg.n_layers,
           dtype=cfg.dtype, wall_s=wall, iterations=eng.step_count,
           decode_iterations=eng.n_decode_launches, prefills=prefills,
           prefill_buckets=buckets, completed=metrics.n_completed,
           tokens=tokens, tokens_per_s=tokens / wall,
-          ms_per_iteration=1e3 * wall / eng.step_count, launches=launches)
+          ms_per_iteration=1e3 * wall / eng.step_count, launches=launches,
+          **({} if label == "engine_slot" else dict(
+              **fields, flash_per_prefill=flash_per_prefill,
+              peak_memory_gb=peak_gb(),
+              cache_bytes_per_slot={
+                  k: t.nbytes // SLOT_ENGINE["n_slots"]
+                  for k, t in eng.cache.items()})))
     if metrics.n_completed != len(reqs) or prefills != len(reqs):
-        fail(f"slot-ring engine completed {metrics.n_completed} of "
+        fail(f"{label} completed {metrics.n_completed} of "
              f"{len(reqs)} ({prefills} prefills)")
-    if launches["flash_attention"] != cfg.n_layers * prefills:
-        fail(f"flash launches {launches} != {cfg.n_layers} x {prefills} "
-             "prefills")
+    if launches["flash_attention"] != flash_per_prefill * prefills:
+        fail(f"{label}: flash launches {launches} != {flash_per_prefill} x "
+             f"{prefills} prefills")
     others = {k: n for k, n in launches.items() if k != "flash_attention"}
     if any(others.values()):
-        fail(f"the slot-ring engine launched a kernel of another path: {others}")
+        fail(f"{label}: the slot-ring engine launched a kernel of another "
+             f"path: {others}")
     return launches
 
 
-def engine_profile_phase(cfg, params, dev, label, ecfg, steps=24, **gen_kw):
+def engine_profile_phase(cfg, params, dev, label, ecfg, steps=24,
+                         fields=None, **gen_kw):
     """Where an engine iteration's time goes: ``steps`` iterations of a
     fresh full-width engine under torch.profiler. Device time is the sum
     of kernel and copy time on the GPU; its share of the profiled wall
-    time is how busy the host keeps the card."""
+    time is how busy the host keeps the card. ``fields`` are printed
+    with it."""
     from torch.profiler import ProfilerActivity, profile
     eng, _, _ = serve(cfg, params, dev, ecfg, 8, 1, **gen_kw)
     for i in range(4):                     # admit + prefill, then decode
@@ -1173,7 +1309,7 @@ def engine_profile_phase(cfg, params, dev, label, ecfg, steps=24, **gen_kw):
             eng.step(4.0 + i)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    profile_summary(label, prof, steps, wall_ms, "iteration")
+    profile_summary(label, prof, steps, wall_ms, "iteration", **(fields or {}))
 
 
 def profile_summary(label, prof, steps, wall_ms, unit, skip=(), **fields):
@@ -1207,14 +1343,20 @@ def profile_summary(label, prof, steps, wall_ms, unit, skip=(), **fields):
         fail(f"{label}: profiler saw no device time")
 
 
-def check_logits(label, kern, plain, plain32, **fields):
+def check_logits(label, kern, plain, plain32, kern32=None, **fields):
     """Kernel-path logits against the plain path's, within the plain
     path's own bf16-vs-float32 deviation; a greedy flip only at a
-    near-tie of the plain path."""
+    near-tie of the plain path. With ``kern32`` (the kernel path in
+    float32) the gate is float32, as train_dense_check's: ``kern32``
+    against ``plain32`` within the same tolerance, and the bf16
+    deviation is printed, ungated (through many bf16 layers the two
+    bf16 paths decorrelate: one bf16 ulp of a kernel output changes
+    later roundings everywhere)."""
     from repro_torch.models.steps import sample_logits
     tol = max(max_err(a, b) for a, b in zip(plain, plain32))
+    gated = (kern, plain) if kern32 is None else (kern32, plain32)
     worst, ties, rows = 0.0, 0, 0
-    for got, want in zip(kern, plain):
+    for got, want in zip(*gated):
         worst = max(worst, max_err(got, want))
         g_tok, w_tok = sample_logits(got, None), sample_logits(want, None)
         rows += len(g_tok)
@@ -1225,6 +1367,10 @@ def check_logits(label, kern, plain, plain32, **fields):
                      f"{g_tok[b].item()} vs plain {w_tok[b].item()}, "
                      f"plain-path gap {gap} > {tol}")
             ties += 1
+    if kern32 is not None:
+        bf16 = max(max_err(a, b) for a, b in zip(kern, plain))
+        fields = dict(gated_on="float32", max_abs_logit_err_bf16_ungated=bf16,
+                      ratio_bf16_to_tol=bf16 / tol, **fields)
     phase(label, max_abs_logit_err=worst, tol_bf16_vs_f32_plain=tol,
           logit_std=plain[-1].std().item(), greedy_rows=rows,
           near_tie_flips=ties, **fields)
@@ -1271,14 +1417,16 @@ def engine_slot_check_phase(cfg, params, dev):
                  plain_reordered_max_abs_logit_err=spread)
 
 
-def engine_check_phase(cfg, params, eng, dev):
+def engine_check_phase(cfg, params, pool, pps, dev, label="engine_check",
+                       gate="bfloat16", **fields):
     """One full-width prefill chunk and one decode step through the
     kernels against the same calls through the plain versions, each
-    from a copy of the engine's pool after its run."""
+    from a copy of ``pool`` (a PagedPool; ``pps`` pages per sequence)
+    with random page tables. ``gate`` "float32" runs every path in
+    float32 as well and gates on that pair (``check_logits``)."""
     from repro_torch.models import transformer
     gen = torch.Generator(device=dev).manual_seed(3)
-    pps = eng.alloc.pages_per_seq
-    n_pages = eng.pool.n_pages
+    n_pages = pool.n_pages
     tables = torch.randperm(n_pages - 1, generator=gen, device=dev)[
         :8 * pps].reshape(8, pps).to(torch.int32)
     chunk = torch.randint(1, cfg.vocab, (1, 128), generator=gen, device=dev)
@@ -1288,11 +1436,12 @@ def engine_check_phase(cfg, params, eng, dev):
                         dtype=torch.int32, device=dev)
     step_tables = tables.clone()
     step_tables[1] = n_pages - 1                   # an inactive slot
+    p32 = _cast(params, torch.float32)
+    c32 = cfg.replace(dtype="float32")
 
-    def run(impl, dtype):
-        p = params if dtype is None else _cast(params, dtype)
-        c = cfg if dtype is None else cfg.replace(dtype="float32")
-        k, v = eng.pool.k, eng.pool.v
+    def run(impl, f32):
+        p, c, dtype = (p32, c32, torch.float32) if f32 else (params, cfg, None)
+        k, v = pool.k, pool.v
         lp = transformer.prefill_chunk_paged(
             c, p, {"k": k.to(dtype or k.dtype, copy=True),
                    "v": v.to(dtype or v.dtype, copy=True)},
@@ -1303,10 +1452,182 @@ def engine_check_phase(cfg, params, eng, dev):
             step_tokens, step_tables, lens, max_pages=16, impl=impl)
         return lp.float(), ld.float()
 
-    kern, plain = run("auto", None), run("reference", None)
-    plain32 = run("reference", torch.float32)
+    reset_launches()
+    kern = run("auto", False)
+    launches = read_launches()
+    plain, plain32 = run("reference", False), run("reference", True)
+    kern32 = run("auto", True) if gate == "float32" else None
     torch.cuda.synchronize()
-    check_logits("engine_check", kern, plain, plain32)
+    want = {"chunked_prefill_attention": cfg.n_layers,
+            "batched_paged_decode_attention": cfg.n_layers}
+    if {k: n for k, n in launches.items() if n} != want:
+        fail(f"{label}: launches {launches}, want {want}")
+    if gate == "float32":
+        fields.update(launches=launches)
+    check_logits(label, kern, plain, plain32, kern32=kern32, **fields)
+
+
+def init_on_card(arch, dev, card, seed, n_layers=None):
+    """``arch``'s config (depth cut to ``n_layers`` if given) and random
+    params drawn on a generator on the card: (cfg, params, fields to
+    print: the card's name and power limit ``card``, the seed, the cut,
+    the seconds the init took)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_api
+    full = get_config(arch)
+    cfg = full.replace(n_layers=n_layers or full.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = get_api(cfg).init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                               device=dev)
+    torch.cuda.synchronize()
+    fields = dict(card=card, init_seed=seed, init_generator=str(dev),
+                  init_s=time.perf_counter() - t0,
+                  n_params=n_params(params), param_bytes=n_params(params, True))
+    if n_layers:
+        fields["depth_cut_from"] = full.n_layers
+    return cfg, params, fields
+
+
+def peak_gb():
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def engine_minitron_phases(dev, card):
+    """Full-width minitron-8b (32 layers, bf16, 9.9 B params) on both
+    caches: the paged engine (B1 and B2), its profile, the slot-ring
+    engine on the same requests (B4), and one prefill chunk and decode
+    step at full width, depth cut to 8 layers, gated in float32."""
+    from repro_torch.serving.kv_cache import PagedPool
+    cfg, params, fields = init_on_card("minitron-8b", dev, card, 8)
+    _, launches = paged_engine_run("engine_minitron", cfg, params, dev,
+                                   **fields)
+    engine_profile_phase(cfg, params, dev, "engine_minitron_profile",
+                         PAGED_ENGINE, fields=dict(card=card),
+                         shared_prefix_tokens=64)
+    engine_slot_phase(cfg, params, dev, "engine_minitron_slot",
+                      gen_kw=dict(shared_prefix_tokens=64), card=card)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg, params, fields = init_on_card("minitron-8b", dev, card, 9,
+                                       n_layers=CHECK_LAYERS)
+    pps = -(-PAGED_ENGINE["max_len"] // PAGED_ENGINE["page_size"])
+    pool = PagedPool.create(cfg, 8 * pps + PAGED_ENGINE["prefix_cache_pages"]
+                            + 1, PAGED_ENGINE["page_size"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for t in (pool.k, pool.v):          # K/V of unit scale, as the model's
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    engine_check_phase(cfg, params, pool, pps, dev,
+                       label="engine_minitron_check", gate="float32",
+                       arch=cfg.name, n_layers=cfg.n_layers, **fields, pool_contents="random N(0, 1) K/V, seed 10")
+    del params, pool
+    torch.cuda.empty_cache()
+    return launches
+
+
+def engine_mamba2_phases(dev, card):
+    """Full-width mamba2-2.7b (64 layers, bf16) on the slot-ring engine,
+    which launches no kernel (the SSD prefill and the decode step are
+    plain, as in JAX), and its profile."""
+    cfg, params, fields = init_on_card("mamba2-2.7b", dev, card, 12)
+    engine_slot_phase(cfg, params, dev, "engine_mamba2", flash_per_prefill=0,
+                      **fields)
+    engine_profile_phase(cfg, params, dev, "engine_mamba2_profile",
+                         SLOT_ENGINE, fields=dict(card=card))
+    del params
+    torch.cuda.empty_cache()
+
+
+def engine_mamba2_check_phase(dev, card):
+    """The serving path, which has no kernel, against the B5 kernel: at
+    full width, depth cut to 8 layers, float32, prefill's last logits
+    and one decode step's logits against ``mamba2.forward`` (the SSD
+    kernel) on the same tokens and those plus one. The tolerance is 4x
+    the plain forward's own float32 deviation when its scan is summed
+    over chunks of 128 instead of 256 (the same function in another
+    order): each of the two compared paths is such a reordering of the
+    exact sum (2x), and the kernel splits its float32 operands into
+    bf16 parts for the tensor cores where the plain path multiplies in
+    float32 (2x more)."""
+    from repro_torch.models import mamba2
+    cfg, params, fields = init_on_card("mamba2-2.7b", dev, card, 13,
+                                       n_layers=CHECK_LAYERS)
+    cfg = cfg.replace(dtype="float32")
+    params = _cast(params, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    L = 256
+    tokens = torch.randint(1, cfg.vocab, (2, L + 1), generator=gen, device=dev)
+    reset_launches()
+    logits_k, _ = mamba2.forward(cfg, params, tokens, impl="auto")
+    lp, cache = mamba2.prefill(cfg, params, tokens[:, :L])
+    ld, _ = mamba2.decode_step(cfg, params, cache, tokens[:, L], cache["lens"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    plain, _ = mamba2.forward(cfg, params, tokens, impl="reference")
+    plain128, _ = mamba2.forward(cfg.replace(ssm_chunk=128), params, tokens,
+                                 impl="reference")
+    kern = logits_k[:, L - 1:L + 1]
+    serve_ = torch.stack([lp, ld], dim=1)
+    reorder = max_err(plain128[:, L - 1:L + 1], plain[:, L - 1:L + 1])
+    tol = 4 * reorder
+    err = max_err(serve_, kern)
+    phase("engine_mamba2_check", arch=cfg.name, n_layers=cfg.n_layers,
+          dtype=cfg.dtype, **fields, tokens=L, batch=2,
+          max_abs_logit_err_serve_vs_kernel=err, tol=tol,
+          plain_chunk128_vs_chunk256=reorder,
+          max_abs_logit_err_serve_vs_plain=max_err(
+              serve_, plain[:, L - 1:L + 1]),
+          max_abs_logit_err_kernel_vs_plain=max_err(
+              kern, plain[:, L - 1:L + 1]),
+          logit_std=plain[:, L].std().item(), launches=launches)
+    if {k: n for k, n in launches.items() if n} != {"ssd_scan": cfg.n_layers}:
+        fail(f"engine_mamba2_check: launches {launches}, want "
+             f"{cfg.n_layers} SSD launches (the forward) and no other")
+    if not math.isfinite(err) or err > tol:
+        fail(f"engine_mamba2_check: serving logits vs the kernel forward: "
+             f"max abs err {err} > {tol}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def engine_zamba2_phases(dev, card):
+    """Full-width zamba2-1.2b (38 Mamba layers, 7 applications of the
+    shared block, bf16) on the slot-ring engine: B4 once per application
+    and prefill, nothing else; its profile; and one prefill and decode
+    step, B4 against plain, gated in float32."""
+    from repro_torch.models import hybrid
+    cfg, params, fields = init_on_card("zamba2-1.2b", dev, card, 15)
+    n_apps = len(hybrid._app_positions(cfg))
+    engine_slot_phase(cfg, params, dev, "engine_zamba2",
+                      flash_per_prefill=n_apps, **fields)
+    engine_profile_phase(cfg, params, dev, "engine_zamba2_profile",
+                         SLOT_ENGINE, fields=dict(card=card))
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    tokens = torch.randint(1, cfg.vocab, (4, 256), generator=gen, device=dev)
+    step = torch.randint(1, cfg.vocab, (4,), generator=gen, device=dev)
+    p32, c32 = _cast(params, torch.float32), cfg.replace(dtype="float32")
+
+    def run(p, c, impl):
+        lp, cache = hybrid.prefill(c, p, tokens, max_len=512, impl=impl)
+        ld, _ = hybrid.decode_step(c, p, cache, step, cache["lens"])
+        return lp.float(), ld.float()
+
+    reset_launches()
+    kern = run(params, cfg, "auto")
+    launches = read_launches()
+    plain, plain32 = run(params, cfg, "reference"), run(p32, c32, "reference")
+    kern32 = run(p32, c32, "auto")
+    torch.cuda.synchronize()
+    if {k: n for k, n in launches.items() if n} != {"flash_attention": n_apps}:
+        fail(f"engine_zamba2_check: launches {launches}, want {n_apps} "
+             "flash launches for one prefill")
+    check_logits("engine_zamba2_check", kern, plain, plain32, kern32=kern32,
+                 arch=cfg.name, n_layers=cfg.n_layers, applications=n_apps,
+                 launches=launches, card=card)
+    del params, p32
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1508,9 +1829,9 @@ TRAIN_CHECK_LAYERS = 8
 DENSE_TRAIN = dict(arch="smollm-135m", batch=8, seq=512, steps=4, lr=3e-4)
 
 
-def n_params(tree) -> int:
+def n_params(tree, in_bytes=False) -> int:
     from repro_torch.distributed.optimizer import tree_leaves
-    return sum(t.numel() for t in tree_leaves(tree))
+    return sum(t.nbytes if in_bytes else t.numel() for t in tree_leaves(tree))
 
 
 def run_steps(setup, n, dev):
@@ -1743,14 +2064,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name, _ = device_phase()
+    name, card = device_phase()
     build_phase()
     kernel_check_phase(dev)
     rows = kernel_times_phase(dev)
     cfg, params, eng, paged_launches = engine_phase(dev)
     engine_profile_phase(cfg, params, dev, "engine_profile", PAGED_ENGINE,
                          shared_prefix_tokens=64)
-    engine_check_phase(cfg, params, eng, dev)
+    engine_check_phase(cfg, params, eng.pool, eng.alloc.pages_per_seq, dev)
     del eng
     slot_launches = engine_slot_phase(cfg, params, dev)
     engine_profile_phase(cfg, params, dev, "engine_slot_profile", SLOT_ENGINE)
@@ -1759,6 +2080,10 @@ def main() -> int:
     cluster_pd_check_phase(cfg, params, drv, dev)
     del params, drv
     torch.cuda.empty_cache()
+    engine_minitron_phases(dev, card)
+    engine_mamba2_phases(dev, card)
+    engine_mamba2_check_phase(dev, card)
+    engine_zamba2_phases(dev, card)
 
     _, setup = train_phase(dev)
     train_launches = read_launches()

@@ -34,7 +34,8 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict,
                       dtype: Optional[torch.dtype] = None) -> Dict:
     """The JAX parameter tree (nested dicts of numpy arrays, layers
     stacked on a leading ``L`` axis) as the port's params, same keys and
-    layouts. Each leaf keeps its own dtype unless ``dtype`` is given: a
+    layouts, at any depth (a hybrid tree's unstacked ``shared`` block
+    too). Each leaf keeps its own dtype unless ``dtype`` is given: a
     mamba2 tree in bfloat16 keeps its float32 ``A_log``, ``D`` and
     ``dt_bias``, as the JAX init makes them. ``cfg`` is the config the
     tree was made for."""

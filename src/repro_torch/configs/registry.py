@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launchers. Lists the archs whose family the port runs: the dense ones
-(trained and served) and mamba2-2.7b (trained; its serving comes with
-ROADMAP.md A8). The rest of the JAX package's catalog joins as their
-model families are ported."""
+launchers. Lists the archs whose family the port runs, trained and
+served: the dense ones, mamba2-2.7b (ssm) and zamba2-1.2b (hybrid). The
+rest of the JAX package's catalog joins as their model families are
+ported (ROADMAP.md: encdec A7, vlm and MoE A6)."""
 
 from __future__ import annotations
 
@@ -13,9 +13,12 @@ from ..models.config import ModelConfig
 
 # arch id -> module name (one module per supported architecture)
 _MODULES: Dict[str, str] = {
+    "minitron-8b": "minitron_8b",
     "smollm-135m": "smollm_135m",
+    "minitron-4b": "minitron_4b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "mamba2-2.7b": "mamba2_2_7b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 ARCHS: List[str] = list(_MODULES)

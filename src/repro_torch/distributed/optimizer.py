@@ -15,7 +15,7 @@ writes params and moments in place, one slice of at most
 ``_SLICE`` elements at a time, so a full-width leaf (``[64, 2560, 5120]``
 on mamba2-2.7b) needs a few float32 temporaries of one slice and not of
 the whole leaf. ZeRO sharding of the state and the int8 compressed
-all-reduce are multi-device and wait for ROADMAP.md, A10.
+all-reduce are multi-device and wait for ROADMAP.md, A9.
 """
 
 from __future__ import annotations

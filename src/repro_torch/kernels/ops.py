@@ -225,3 +225,12 @@ def chunked_prefill_attention(
     return ref.chunked_prefill_attention_ref(
         q, k_pages, v_pages, page_table, q_offsets, kv_lens,
         logit_softcap=logit_softcap)
+
+
+def ssm_decode_step(h: torch.Tensor, x_t: torch.Tensor, a_t: torch.Tensor,
+                    b_t: torch.Tensor, c_t: torch.Tensor):
+    """Single-token SSM state update (the Mamba-2 decode step): (y, the
+    new float32 state). Plain PyTorch on every device, as the JAX
+    package's ``ops.ssm_decode_step`` calls its plain form on every
+    backend: no TPU kernel computes it."""
+    return ref.ssm_decode_step_ref(h, x_t, a_t, b_t, c_t)

@@ -7,7 +7,9 @@ decode, the paged forms, which gather each sequence's pages into a
 contiguous view and then run textbook masked softmax attention in
 float32 (``paged_decode_split_ref`` repeats the split-page decode
 kernel's own order: per-run partials merged in run order), and the
-Mamba-2 SSD scan (``ssd_naive``, ``ssd_chunked``). Rows whose mask is
+Mamba-2 SSD scan (``ssd_naive``, ``ssd_chunked``) and its one-token
+decode step (``ssm_decode_step_ref``, which has no kernel: the JAX
+package runs its plain form on every backend). Rows whose mask is
 empty have zero mass and come out as zeros (``l == 0 -> 1``), except
 in ``mha_naive``, which keeps the textbook softmax's NaN there as the
 JAX oracle does. The wrappers in
@@ -412,6 +414,26 @@ def ssd_chunked(
     if return_final_state:
         return y, h
     return y
+
+
+def ssm_decode_step_ref(
+    h: torch.Tensor,            # [B, H, P, N] recurrent state, float32
+    x_t: torch.Tensor,          # [B, H, P]    dt-scaled input
+    a_t: torch.Tensor,          # [B, H]       log decay this step
+    b_t: torch.Tensor,          # [B, G, N]
+    c_t: torch.Tensor,          # [B, G, N]
+):
+    """Single-token SSM recurrence (the decode path): ``h' = e^a h +
+    x B^T``, ``y = C . h'`` in float32, B and C repeated over the
+    ``H / G`` heads of their group. Returns (y [B, H, P] in x's dtype,
+    h' [B, H, P, N] float32)."""
+    rep = h.shape[1] // b_t.shape[1]
+    bf = b_t.float().repeat_interleave(rep, dim=1)         # [B, H, N]
+    cf = c_t.float().repeat_interleave(rep, dim=1)
+    h_new = (h * torch.exp(a_t.float())[..., None, None]
+             + x_t.float()[..., None] * bf[:, :, None, :])
+    y = torch.einsum("bhpn,bhn->bhp", h_new, cf)
+    return y.to(x_t.dtype), h_new
 
 
 # The SSD scan in the kernel's three stages (csrc/ssd_scan.cu), float32:

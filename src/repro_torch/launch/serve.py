@@ -9,10 +9,12 @@ the discrete-event simulator.
 ``--engine torch`` (the default) is the counterpart of the JAX package's
 ``launch/serve.py --engine jax``: the real continuous-batching engine,
 here at the arch's full width on ``cuda`` (random weights from
-``--seed``), with the same scheduler state machine. ``--paged off`` (the
-default) is that launcher's engine, the slot-ring cache; ``--paged on``
-serves from the paged KV pool. ``--device cpu`` runs on the CPU with the
-kernels' plain versions.
+``--seed``, drawn on the run's device), with the same scheduler state
+machine. ``--paged off`` (the default) is that launcher's engine, the
+slot-ring cache, which serves every ``--arch`` (dense, ``mamba2-2.7b``,
+``zamba2-1.2b``); ``--paged on`` serves a dense arch from the paged KV
+pool (the engine refuses the others with a ``ValueError``).
+``--device cpu`` runs on the CPU with the kernels' plain versions.
 
 ``--engine sim`` runs the discrete-event simulator with the
 L4-calibrated cost model, the configuration every paper table uses, on
@@ -31,6 +33,7 @@ import torch
 from ..configs import ARCHS, get_config
 from ..core.estimator import DriftConfig
 from ..core.scheduler import DriftScheduler
+from ..models.layers import resolve_device
 from ..models.registry import get_api
 from ..serving.engine import EngineConfig, ServingEngine
 from ..serving.simulator import SimConfig, WorkerSimulator
@@ -75,13 +78,15 @@ def main(argv=None) -> int:
         metrics = WorkerSimulator(sched, plan, sim_cfg).run()
     else:
         cfg = get_config(args.arch)
+        device = resolve_device(args.device)
         params = get_api(cfg).init(
-            cfg, torch.Generator().manual_seed(args.seed), device=args.device)
+            cfg, torch.Generator(device=device).manual_seed(args.seed),
+            device=device)
         eng = ServingEngine(cfg, params, sched,
                             EngineConfig(n_slots=8, max_len=128,
                                          prompt_buckets=(16, 32),
                                          paged=args.paged == "on"),
-                            device=args.device)
+                            device=device)
         gen = WorkloadGenerator(GeneratorConfig(
             total_requests=args.requests,
             calibration_requests=args.requests,

@@ -9,7 +9,7 @@ kernels' plain versions). Random init from ``--seed`` on a generator on
 the run's device; per-layer remat on. ``--preset smoke`` runs the
 arch's reduced config, ``full`` its published widths. Checkpoint /
 restart with ``--checkpoint-dir`` and ``--resume``. The JAX launcher's
-``--compile-only`` (a TPU-mesh dry run) comes with ROADMAP.md A10.
+``--compile-only`` (a TPU-mesh dry run) comes with ROADMAP.md A9.
 """
 
 from __future__ import annotations

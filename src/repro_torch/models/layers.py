@@ -3,8 +3,8 @@ params as dicts).
 
 The subset of the JAX package's ``models/layers.py`` that the dense
 serving paths (paged and slot-ring, with the int8 KV cache's
-quantisation) and the dense and SSM training forwards run, with its
-conventions and layouts kept:
+quantisation), the SSM and hybrid models and the training forwards run,
+with its conventions and layouts kept:
 
 * attention weights are head-split: wq [d, H, hd], wk/wv [d, Hk, hd],
   wo [H, hd, d]; MLP w1/w3 [d, ff], w2 [ff, d]; embedding table [V, d];
@@ -49,14 +49,17 @@ def unstack_layers(layers: Dict) -> List[Dict]:
     return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
-def run_layers(body, x: torch.Tensor, layers: Dict, *,
+def run_layers(body, x: torch.Tensor, layers: "Dict | List[Dict]", *,
                remat: bool) -> torch.Tensor:
     """``x = body(lp, x)`` for each layer's params ``lp`` of the stacked
-    tree ``layers`` (the JAX ``lax.scan`` over layers). With ``remat``
-    each layer's activations are recomputed in the backward
+    tree ``layers`` (the JAX ``lax.scan`` over layers), or of a list of
+    per-layer trees from :func:`unstack_layers`. With ``remat`` each
+    layer's activations are recomputed in the backward
     (``torch.utils.checkpoint``, as ``jax.checkpoint`` with
     ``nothing_saveable``), so its kernels run twice per step."""
-    for lp in unstack_layers(layers):
+    if isinstance(layers, dict):
+        layers = unstack_layers(layers)
+    for lp in layers:
         if remat:
             x = checkpoint(lambda h, lp: body(lp, h), x, lp,
                            use_reentrant=False, preserve_rng_state=False)
@@ -110,14 +113,16 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out.to(x.dtype)
 
 
-def init_norm(cfg: ModelConfig, device) -> Dict:
-    """``cfg.norm``'s params over ``d_model``: layernorm scale 1 and
-    bias 0, or the rmsnorm scale 0 (applied as ``1 + scale``)."""
+def init_norm(cfg: ModelConfig, device, width: Optional[int] = None) -> Dict:
+    """``cfg.norm``'s params over ``width`` (default ``d_model``):
+    layernorm scale 1 and bias 0, or the rmsnorm scale 0 (applied as
+    ``1 + scale``)."""
+    width = width or cfg.d_model
     kw = dict(dtype=dt(cfg), device=device)
     if cfg.norm == "layernorm":
-        return {"scale": torch.ones((cfg.d_model,), **kw),
-                "bias": torch.zeros((cfg.d_model,), **kw)}
-    return {"scale": torch.zeros((cfg.d_model,), **kw)}
+        return {"scale": torch.ones((width,), **kw),
+                "bias": torch.zeros((width,), **kw)}
+    return {"scale": torch.zeros((width,), **kw)}
 
 
 def apply_norm(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -151,8 +156,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # attention projections and the MLP
 # ---------------------------------------------------------------------------
 
-def init_attention(gen, cfg: ModelConfig, device) -> Dict:
-    d, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+def init_attention(gen, cfg: ModelConfig, device,
+                   width: Optional[int] = None) -> Dict:
+    """Head-split projections over an input of ``width`` (default
+    ``d_model``)."""
+    d = width or cfg.d_model
+    H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     kw = dict(dtype=dt(cfg), device=device)
     return {
         "wq": dense_init(gen, (d, H, hd), fan_in=d, **kw),
@@ -176,6 +185,25 @@ def qkv_project(p: Dict, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return (project_heads(x, p["wq"]), project_heads(x, p["wk"]),
             project_heads(x, p["wv"]))
+
+
+def attention_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
+                    window: Optional[int] = None,
+                    impl: str = "auto") -> torch.Tensor:
+    """Full-sequence causal self-attention (training), x [B, L, width]:
+    project, rope at ``0..L-1``, one flash-attention call within
+    ``window``, merge the heads. Returns [B, L, width]. (The JAX layer's
+    ``positions``, ``prefix_len`` and cross-attention ``kv_override``
+    come with the vlm and encdec families.)"""
+    B, L, _ = x.shape
+    q, k, v = qkv_project(p, x)
+    if cfg.pos == "rope":
+        pos = torch.arange(L, device=x.device)[None].expand(B, L)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    out = ops.attention(q, k, v, causal=True, window=window,
+                        logit_softcap=cfg.logit_softcap, impl=impl)
+    return merge_heads(out, p["wo"])
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -238,8 +266,9 @@ def attention_decode(
     return merge_heads(out, p["wo"])
 
 
-def init_mlp(gen, cfg: ModelConfig, device) -> Dict:
-    d, ff = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg: ModelConfig, device,
+             width: Optional[int] = None) -> Dict:
+    d, ff = width or cfg.d_model, cfg.d_ff
     kw = dict(dtype=dt(cfg), device=device)
     p = {"w1": dense_init(gen, (d, ff), **kw),
          "w2": dense_init(gen, (ff, d), **kw)}

@@ -1,5 +1,5 @@
-"""Mamba-2 (SSD) model, the attention-free family (mamba2-2.7b): init
-and the full-sequence forward the trainer runs.
+"""Mamba-2 (SSD) model, the attention-free family (mamba2-2.7b): init,
+the full-sequence forward the trainer runs, and the serving paths.
 
 Port of the JAX package's ``models/mamba2.py``. Block: in_proj split as
 ``w_z | w_x | w_b | w_c | w_dt``; causal depthwise conv + SiLU on each of
@@ -10,20 +10,25 @@ on a leading ``L`` axis (the JAX layout, so the tests compare like with
 like); the layer ``lax.scan`` becomes a Python loop. ``A_log``, ``D``
 and ``dt_bias`` are float32 whatever ``cfg.dtype`` is, as in JAX.
 
-The serving paths (``prefill``, ``decode_step``, ``init_cache``) come
-with the SSM serving slice (ROADMAP.md, A8).
+Serving keeps O(1) state per layer and slot (``init_cache``): a
+``[k-1, conv_dim]`` ring of the pre-conv ``x | B | C`` segments in the
+model dtype and the ``[H, P, N]`` SSM state in float32. ``prefill``
+runs the plain ``ref.ssd_chunked`` with its final state (as the JAX
+prefill does; the B5 kernel returns no state); ``decode_step`` advances
+every slot one token through ``ops.ssm_decode_step`` and writes both
+states in place (the JAX function returns a new cache).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import ops, ref
 from . import layers as nn
 from .config import ModelConfig
 
@@ -167,3 +172,138 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     x = nn.apply_norm(cfg, params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return nn.unembed(cfg, head, x), torch.zeros((), device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# serving paths: O(1) decode state
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: "str | torch.device" = "cuda") -> Dict:
+    """Zeroed decode state for ``batch`` slots (``max_len`` unused: the
+    state is constant-size): ``conv [L, B, k-1, conv_dim]`` in
+    ``cfg.dtype``, ``ssm [L, B, H, P, N]`` float32, ``lens [B]`` int32."""
+    del max_len
+    device = nn.resolve_device(device)
+    L, H, P, N = cfg.n_layers, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    return {
+        "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, cfg.conv_dim),
+                            dtype=nn.dt(cfg), device=device),
+        "ssm": torch.zeros((L, batch, H, P, N), dtype=torch.float32,
+                           device=device),
+        "lens": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _layer_prefill(cfg: ModelConfig, lp: Dict, h: torch.Tensor):
+    """``layer_fwd`` that also returns (conv_state [B, k-1, conv_dim],
+    ssm_state [B, H, P, N]). The conv ring holds the last ``k - 1``
+    pre-conv ``xs | b | c`` rows, concatenated (decode re-splits them at
+    fixed offsets). The scan is the plain ``ref.ssd_chunked`` with its
+    final state."""
+    sp = lp["ssm"]
+    x = nn.apply_norm(cfg, lp["ln"], h)
+    z, xs, b, c, dt_raw = _ssm_pre(cfg, sp, x)
+    tail = slice(-(cfg.ssm_conv - 1), None)
+    conv_state = torch.cat([xs[:, tail], b[:, tail], c[:, tail]],
+                           dim=-1).to(nn.dt(cfg))
+    xs = F.silu(_causal_conv(xs, sp["conv_x_w"], sp["conv_x_b"]))
+    b = F.silu(_causal_conv(b, sp["conv_b_w"], sp["conv_b_b"]))
+    c = F.silu(_causal_conv(c, sp["conv_c_w"], sp["conv_c_b"]))
+    xh, a, b, c, x_heads, _ = _ssd_inputs(cfg, sp, xs, b, c, dt_raw)
+    y, state = ref.ssd_chunked(xh, a, b, c, chunk=cfg.ssm_chunk,
+                               return_final_state=True)
+    return h + _gated_out(cfg, sp, y, z, x_heads), (conv_state, state)
+
+
+def prefill_layers(cfg: ModelConfig, layers, h: torch.Tensor,
+                   conv: list, ssm: list) -> torch.Tensor:
+    """``h`` through the per-layer trees ``layers`` with
+    :func:`_layer_prefill`, each layer's states appended to ``conv`` and
+    ``ssm``."""
+    for lp in layers:
+        h, (conv_s, ssm_s) = _layer_prefill(cfg, lp, h)
+        conv.append(conv_s)
+        ssm.append(ssm_s)
+    return h
+
+
+def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+            max_len: Optional[int] = None, impl: str = "auto",
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Process the prompt ``tokens`` [B, L]: (last-position logits
+    [B, V], a filled cache). A prompt shorter than ``k - 1`` tokens is
+    not supported (as in JAX, the conv ring takes the last ``k - 1``
+    rows). ``max_len`` and ``impl`` are accepted for the registry's
+    uniform signature; no kernel runs here."""
+    del max_len, impl
+    B, L = tokens.shape
+    h = nn.embed(cfg, params["embed"], tokens)
+    conv, ssm = [], []
+    h = prefill_layers(cfg, nn.unstack_layers(params["layers"]), h, conv, ssm)
+    h = nn.apply_norm(cfg, params["final_norm"], h[:, L - 1])
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return nn.unembed(cfg, head, h), {
+        "conv": torch.stack(conv), "ssm": torch.stack(ssm),
+        "lens": torch.full((B,), L, dtype=torch.int32, device=tokens.device)}
+
+
+def decode_layer(cfg: ModelConfig, lp: Dict, h: torch.Tensor,
+                 conv_st: torch.Tensor, ssm_st: torch.Tensor):
+    """One token through one Mamba block (shared with the hybrid
+    family), h [B, d]; conv_st [B, k-1, conv_dim] is the ring of
+    pre-conv ``xs | b | c`` rows. Returns (h', (new conv ring, new SSM
+    state)). As in JAX, the three conv weights and biases are
+    concatenated on every call."""
+    B = h.shape[0]
+    din, gn, H = _split_sizes(cfg)
+    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    sp = lp["ssm"]
+    xn = nn.apply_norm(cfg, lp["ln"], h)
+    z, xs_t, b_t, c_t, dt_raw = _ssm_pre(cfg, sp, xn)
+    seg_t = torch.cat([xs_t, b_t, c_t], dim=-1)          # [B, conv_dim]
+    win = torch.cat([conv_st.float(), seg_t[:, None, :].float()], dim=1)
+    conv_w = torch.cat([sp["conv_x_w"], sp["conv_b_w"], sp["conv_c_w"]],
+                       dim=-1).float()
+    conv_b = torch.cat([sp["conv_x_b"], sp["conv_b_b"], sp["conv_c_b"]],
+                       dim=-1).float()
+    conv_out = torch.einsum("bkc,kc->bc", win, conv_w) + conv_b
+    seg = F.silu(conv_out).to(xn.dtype)                  # [B, conv_dim]
+    new_conv = win[:, 1:].to(conv_st.dtype)
+
+    b = seg[..., din:din + gn].reshape(B, G, N)
+    c = seg[..., din + gn:].reshape(B, G, N)
+    dt = F.softplus(dt_raw.float() + sp["dt_bias"])
+    a = -torch.exp(sp["A_log"]) * dt                     # [B, H]
+    x_heads = seg[..., :din].reshape(B, H, P)
+    xh = (x_heads.float() * dt[..., None]).to(seg.dtype)
+    y, new_ssm = ops.ssm_decode_step(ssm_st, xh, a, b, c)
+    return h + _gated_out(cfg, sp, y, z, x_heads), (new_conv, new_ssm)
+
+
+def decode_layers(cfg: ModelConfig, layers, h: torch.Tensor, cache: Dict,
+                  start: int = 0) -> torch.Tensor:
+    """``h`` [B, d] through the per-layer trees ``layers``, the Mamba
+    layers ``start, start + 1, ...`` of ``cache``, whose ``conv`` and
+    ``ssm`` rows are written in place."""
+    for j, lp in enumerate(layers, start):
+        h, (conv_s, ssm_s) = decode_layer(cfg, lp, h, cache["conv"][j],
+                                          cache["ssm"][j])
+        cache["conv"][j].copy_(conv_s)
+        cache["ssm"][j].copy_(ssm_s)
+    return h
+
+
+def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
+                tokens: torch.Tensor,          # [B] current token
+                pos: "int | torch.Tensor",     # unused: the state is O(1)
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One decode iteration for every slot: (logits [B, V], the cache
+    with its conv and SSM states written in place and ``lens + 1``)."""
+    del pos
+    h = nn.embed(cfg, params["embed"], tokens)           # [B, d]
+    h = decode_layers(cfg, nn.unstack_layers(params["layers"]), h, cache)
+    h = nn.apply_norm(cfg, params["final_norm"], h)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return nn.unembed(cfg, head, h), {
+        **cache, "lens": (cache["lens"] + 1).to(torch.int32)}

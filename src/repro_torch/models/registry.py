@@ -2,8 +2,9 @@
 call.
 
 Port of the JAX package's ``models/registry.py`` for the families the
-port runs so far: the dense transformer (training and both serving
-caches) and the SSM family, Mamba-2 (training only):
+port runs so far, each trained and served: the dense transformer (both
+engine caches), the SSM family (Mamba-2) and the hybrid (zamba2), the
+last two on the slot-ring cache:
 
     api = get_api(cfg)
     params = api.init(cfg, gen, device=...)
@@ -13,39 +14,42 @@ caches) and the SSM family, Mamba-2 (training only):
     cache = api.init_cache(cfg, batch_size, max_len, device=...)
 
 ``forward`` takes a ``batch`` dict, as in JAX (the vlm and encdec
-modality inputs travel in it); the dense family's ``prefill`` takes the
-tokens directly. The SSM family has no serving entries (``None``) until
-the SSM serving slice (ROADMAP.md, A8): :func:`get_serving_api` refuses
-it, and every family the port does not run, up front.
+modality inputs travel in it); ``prefill`` takes the tokens directly.
+:func:`get_api` refuses the families the port does not run yet, up
+front: vlm and MoE (ROADMAP.md, A6) and encdec (A7).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict
 
-from . import mamba2, transformer
+from . import hybrid, mamba2, transformer
 from .config import ModelConfig
+
+# the families later slices port -> their ROADMAP.md item
+_LATER = {"vlm": "A6", "moe": "A6", "encdec": "A7"}
 
 
 @dataclass(frozen=True)
 class ModelApi:
     init: Callable[..., Dict]
     forward: Callable[..., tuple]
-    prefill: Optional[Callable[..., tuple]] = None
-    decode_step: Optional[Callable[..., tuple]] = None
-    init_cache: Optional[Callable[..., Dict]] = None
+    prefill: Callable[..., tuple]
+    decode_step: Callable[..., tuple]
+    init_cache: Callable[..., Dict]
 
 
-def _later(family: str, what: str, item: str) -> NotImplementedError:
+def _later(family: str) -> NotImplementedError:
+    item = _LATER.get(family, "queue A")
     return NotImplementedError(
-        f"the port does not {what} the {family!r} family yet; it is a later "
+        f"the port does not run the {family!r} family yet; it is a later "
         f"slice (ROADMAP.md, {item})")
 
 
 def _tf_forward(cfg, params, batch, *, remat=False, impl="auto"):
     if batch.get("patches") is not None:
-        raise _later(cfg.family, "train", "A7")
+        raise _later("vlm")
     return transformer.forward(cfg, params, batch["tokens"], remat=remat,
                                impl=impl)
 
@@ -55,10 +59,18 @@ def _mamba_forward(cfg, params, batch, *, remat=False, impl="auto"):
                           impl=impl)
 
 
+def _hybrid_forward(cfg, params, batch, *, remat=False, impl="auto"):
+    return hybrid.forward(cfg, params, batch["tokens"], remat=remat,
+                          impl=impl)
+
+
 _FAMILY_API: Dict[str, ModelApi] = {
     "dense": ModelApi(transformer.init, _tf_forward, transformer.prefill,
                       transformer.decode_step, transformer.init_cache),
-    "ssm": ModelApi(mamba2.init, _mamba_forward),
+    "ssm": ModelApi(mamba2.init, _mamba_forward, mamba2.prefill,
+                    mamba2.decode_step, mamba2.init_cache),
+    "hybrid": ModelApi(hybrid.init, _hybrid_forward, hybrid.prefill,
+                       hybrid.decode_step, hybrid.init_cache),
 }
 
 
@@ -66,12 +78,4 @@ def get_api(cfg: ModelConfig) -> ModelApi:
     try:
         return _FAMILY_API[cfg.family]
     except KeyError:
-        raise _later(cfg.family, "run", "queue A") from None
-
-
-def get_serving_api(cfg: ModelConfig) -> ModelApi:
-    """``get_api`` for a family the serving engine can run."""
-    api = get_api(cfg)
-    if api.prefill is None:
-        raise _later(cfg.family, "serve", "A8")
-    return api
+        raise _later(cfg.family) from None

@@ -4,7 +4,7 @@ Port of the JAX package's ``models/steps.py``: ``cross_entropy``,
 ``loss_fn`` and ``make_train_step`` (the trainer's unit: loss, gradients
 and one optimizer update, with per-layer remat), and ``sample_logits``
 (the serving engine's sampler). The prefill / serve steps of the JAX
-dry-run come with the multi-device work (ROADMAP.md, A10).
+dry-run come with the multi-device work (ROADMAP.md, A9).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ cache); and the paged path (:func:`decode_step_paged`,
 :func:`prefill_chunk_paged`). Per-layer params stay stacked on a leading
 ``L`` axis (the JAX layout, so the tests compare like with like); the
 layer ``lax.scan`` becomes a Python loop over that axis. The vlm prefix
-and MoE layers come with a later slice (ROADMAP.md, A7).
+and MoE layers come with a later slice (ROADMAP.md, A6).
 
 The caches are updated in place: the contiguous cache
 ``{"k": [L, B, S, Hk, hd], "v": ..., "lens": [B]}`` (plus ``k_scale`` /
@@ -38,24 +38,32 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"the port's transformer runs the dense family only; "
-            f"{cfg.family!r} is a later slice (ROADMAP.md, queue A)")
+            f"{cfg.family!r} is a later slice (ROADMAP.md, A6)")
 
 
 def init(cfg: ModelConfig, gen: torch.Generator,
          device: "str | torch.device" = "cuda") -> Dict:
     """Random params from ``gen`` (std ``fan_in**-0.5`` projections,
-    0.02 embeddings, zero norm scales), in ``cfg.dtype`` on ``device``."""
+    0.02 embeddings, zero norm scales), in ``cfg.dtype`` on ``device``.
+    Layer by layer, each written into its row of the stacked leaves as
+    it is drawn, so the weights are held once (minitron-8b: 19.8 GB in
+    bf16)."""
     _check_family(cfg)
     device = nn.resolve_device(device)
     d = cfg.d_model
-    per_layer = [{"ln1": nn.init_norm(cfg, device),
-                  "attn": nn.init_attention(gen, cfg, device),
-                  "ln2": nn.init_norm(cfg, device),
-                  "mlp": nn.init_mlp(gen, cfg, device)}
-                 for _ in range(cfg.n_layers)]
-    stacked = {group: {name: torch.stack([lp[group][name] for lp in per_layer])
-                       for name in per_layer[0][group]}
-               for group in per_layer[0]}
+    stacked = None
+    for i in range(cfg.n_layers):
+        lp = {"ln1": nn.init_norm(cfg, device),
+              "attn": nn.init_attention(gen, cfg, device),
+              "ln2": nn.init_norm(cfg, device),
+              "mlp": nn.init_mlp(gen, cfg, device)}
+        if stacked is None:
+            stacked = {group: {name: w.new_empty((cfg.n_layers, *w.shape))
+                               for name, w in ws.items()}
+                       for group, ws in lp.items()}
+        for group, ws in lp.items():
+            for name, w in ws.items():
+                stacked[group][name][i] = w
     params = {
         "embed": {"table": nn.embed_init(gen, (cfg.vocab, d), nn.dt(cfg),
                                          device)},
@@ -85,16 +93,9 @@ def _head(cfg: ModelConfig, params: Dict) -> Dict:
 def _layer_fwd(cfg: ModelConfig, lp: Dict, h: torch.Tensor, *,
                impl: str) -> torch.Tensor:
     """One decoder layer over the full sequence, h [B, L, d]."""
-    B, L, _ = h.shape
-    attn_in = nn.apply_norm(cfg, lp["ln1"], h)
-    q, k, v = nn.qkv_project(lp["attn"], attn_in)       # [B, L, H/Hk, hd]
-    if cfg.pos == "rope":
-        positions = torch.arange(L, device=h.device)[None].expand(B, L)
-        q = nn.apply_rope(q, positions, cfg.rope_theta)
-        k = nn.apply_rope(k, positions, cfg.rope_theta)
-    attn = ops.attention(q, k, v, causal=True, window=cfg.sliding_window,
-                         logit_softcap=cfg.logit_softcap, impl=impl)
-    h = h + nn.merge_heads(attn, lp["attn"]["wo"])
+    h = h + nn.attention_block(cfg, lp["attn"],
+                               nn.apply_norm(cfg, lp["ln1"], h),
+                               window=cfg.sliding_window, impl=impl)
     return h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
 
 

@@ -1,7 +1,8 @@
 """The continuous-batching serving engine of the port.
 
 Port of the JAX package's ``serving/engine.py`` for the dense
-transformer, on both of its caches. It drives the identical
+transformer, on both of its caches, and for the SSM (Mamba-2) and
+hybrid (zamba2) families on the slot-ring cache. It drives the identical
 ``DriftScheduler`` state machine — admission, dispatch, completion
 feedback (Eq. 5-6) — and, on the paged path, the identical page
 bookkeeping (``kv_cache.PagedSeqLedger`` with the shared-prefix
@@ -11,10 +12,11 @@ and requests.
 
 * Slot-ring cache (``EngineConfig.paged=False``, the default): a
   fixed ring of ``n_slots`` contiguous per-slot caches
-  (``api.init_cache``; a window-sized ring for sliding-window archs).
-  A slot's prompt bucket prefills in one shot through ``api.prefill``
-  (one flash-attention kernel launch per layer) the iteration its last
-  prompt chunk is consumed, and the resulting cache is copied into the
+  (``api.init_cache``; a window-sized ring for sliding-window archs;
+  the O(1) conv and SSM states of the Mamba layers). A slot's prompt
+  bucket prefills in one shot through ``api.prefill`` (one
+  flash-attention kernel launch per attention layer) the iteration its
+  last prompt chunk is consumed, and the resulting cache is copied into the
   slot. Every slot decodes each step through ``api.decode_step`` at its
   own depth (``pos = cache["lens"]``); a free slot's lane computes
   masked garbage, as on the TPU.
@@ -48,8 +50,8 @@ and requests.
 
 The pool holds one extra page the allocator never hands out; inactive
 slots scatter their masked decode writes there. Both caches are updated
-in place. The other model families come with later slices
-(ROADMAP.md).
+in place. The vlm, MoE and encdec families come with later slices
+(ROADMAP.md, A6 and A7).
 
 EOS: with randomly-initialised models there is no semantic EOS, so
 requests stop at their ground-truth output length (oracle EOS, clipped
@@ -71,7 +73,7 @@ from ..core.scheduler import DriftScheduler
 from ..models import transformer
 from ..models.config import ModelConfig
 from ..models.layers import resolve_device
-from ..models.registry import get_serving_api
+from ..models.registry import get_api
 from ..models.steps import sample_logits
 from ..obs import events as tr
 from ..obs import resolve_recorder
@@ -144,7 +146,7 @@ class ServingEngine:
         if self.trace.enabled:
             self.sched.drift.trace = self.trace
         # raises NotImplementedError for the families later slices port
-        self.api = get_serving_api(cfg)
+        self.api = get_api(cfg)
         c = self.ecfg.chunk_prefill_tokens
         if c is not None and c < 1:
             raise ValueError(
@@ -176,6 +178,10 @@ class ServingEngine:
         self.prefix_tokens_saved = 0
 
         if self.ecfg.paged:
+            if cfg.family not in ("dense", "moe", "vlm"):
+                raise ValueError(
+                    f"paged engine supports transformer-family archs, "
+                    f"not {cfg.family!r} (SSM state is O(1) already)")
             pages_per_seq = -(-S // self.ecfg.page_size)
             extra = (self.ecfg.prefix_cache_pages
                      if self.ecfg.prefix_cache else 0)

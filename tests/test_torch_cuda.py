@@ -61,6 +61,8 @@ def _scene(gen, dev, B, Hk, D, P, pps, dtype):
 @pytest.mark.parametrize("B,H,Hk,D,P,pps", [
     (3, 3, 1, 24, 8, 12),        # smoke smollm
     (8, 9, 3, 64, 16, 32),       # full-width smollm
+    (8, 24, 8, 128, 16, 32),     # full-width minitron-4b, group 3
+    (8, 32, 8, 128, 16, 32),     # full-width minitron-8b, group 4
 ])
 @pytest.mark.parametrize("softcap", [None, 30.0])
 def test_decode_kernel_matches_plain(cuda, B, H, Hk, D, P, pps, softcap,
@@ -90,6 +92,8 @@ def test_decode_kernel_matches_plain(cuda, B, H, Hk, D, P, pps, softcap,
 @pytest.mark.parametrize("B,H,Hk,D,P,pps", [
     (2, 3, 1, 24, 8, 24),        # smoke smollm
     (2, 9, 3, 64, 16, 32),       # full-width smollm
+    (2, 24, 8, 128, 16, 32),     # full-width minitron-4b, group 3
+    (2, 32, 8, 128, 16, 32),     # full-width minitron-8b, group 4
 ])
 def test_prefill_kernel_matches_plain(cuda, B, H, Hk, D, P, pps, C, dtype):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -115,6 +119,10 @@ def test_prefill_kernel_matches_plain(cuda, B, H, Hk, D, P, pps, C, dtype):
     (1, 256, 256, 32, 8, 80, dict(window=64, prefix_len=16)),  # h2o-danube
     (1, 16, 200, 8, 2, 256, dict(logit_softcap=30.0)),      # > 48 KB smem
     (2, 1, 200, 9, 3, 64, dict(window=64)),                 # Lq 1
+    (1, 64, 64, 24, 8, 128, dict()),                        # minitron-4b
+    (1, 256, 256, 32, 8, 128, dict()),                      # minitron-8b
+    # zamba2's shared block: group 1, the window edge inside a tile
+    (1, 4608, 4608, 32, 32, 128, dict(window=4096)),
 ])
 def test_flash_kernel_matches_plain(cuda, B, Lq, Lk, H, Hk, D, kw, dtype):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -192,6 +200,8 @@ def test_prefill_kernel_tile_edges(cuda, C, H, Hk, D, dtype):
 @pytest.mark.parametrize("B,H,Hk,D,P,pps", [
     (3, 3, 1, 24, 8, 12),        # smoke smollm
     (8, 9, 3, 64, 16, 32),       # full-width smollm
+    (8, 24, 8, 128, 16, 32),     # minitron-4b's heads, group 3
+    (8, 32, 8, 128, 16, 32),     # minitron-8b's heads, group 4
 ])
 def test_paged_decode_kernel_matches_plain(cuda, B, H, Hk, D, P, pps, dtype):
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -446,3 +456,43 @@ def test_pd_extract_and_inject_bit_exact_on_the_card(cuda):
     torch.cuda.synchronize()
     assert paged_attention.launches - before == 2 * cfg.n_layers
     assert torch.equal(logits, want)
+
+
+@pytest.mark.parametrize("arch,paged", [("minitron-8b", True),
+                                        ("minitron-8b", False),
+                                        ("mamba2-2.7b", False),
+                                        ("zamba2-1.2b", False)])
+def test_engine_serves_each_family_on_cuda(cuda, arch, paged):
+    """Smoke-size engines on the card: every request completes, and each
+    kernel of the path launches exactly as often as the path says (paged:
+    batched decode and chunked prefill once per layer and iteration or
+    chunk; slot-ring: flash attention once per attention layer and
+    prefill, none for Mamba-2), and no other kernel."""
+    cfg = smoke_config(arch)
+    params = get_api(cfg).init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                               device=cuda)
+    sched = DriftScheduler("fifo")
+    eng = ServingEngine(cfg, params, sched,
+                        EngineConfig(n_slots=3, max_len=96,
+                                     prompt_buckets=(16, 32), paged=paged,
+                                     page_size=8, chunk_prefill_tokens=16),
+                        device=cuda)
+    gen = WorkloadGenerator(GeneratorConfig(
+        total_requests=5, calibration_requests=5, max_tokens=12, seed=3))
+    for t, r in gen.plan(seed=3).calibration:
+        sched.submit(r, t)
+    counters = [(paged_attention, "launches"), (chunked_prefill, "launches"),
+                (paged_attention, "paged_decode_launches"),
+                (flash_attention, "launches"), (ssd_scan, "launches")]
+    before = [getattr(m, a) for m, a in counters]
+    assert eng.run_until_drained(max_steps=2000).n_completed == 5
+    torch.cuda.synchronize()
+    got = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
+    if paged:
+        want = [cfg.n_layers * eng.n_decode_launches,
+                cfg.n_layers * eng.n_prefill_launches, 0, 0, 0]
+    else:
+        per_prefill = {"dense": cfg.n_layers, "ssm": 0,
+                       "hybrid": -(-cfg.n_layers // max(cfg.attn_every, 1))}
+        want = [0, 0, 0, per_prefill[cfg.family] * 5, 0]
+    assert got == want

@@ -5,11 +5,15 @@
   requests, stepped together. After every step each slot holds the same
   last token; at the end completion order, TTFT/completion stamps,
   chunk logs, launch counts and prefix-cache counters agree. Paged
-  arms: chunk budget {None, 8} x prefix cache {off, on}. Slot-ring
+  arms: chunk budget {None, 8} x prefix cache {off, on} on
+  smollm-135m, and minitron-4b (GQA group 3) and minitron-8b (group 2)
+  at chunk None without and chunk 8 with the prefix cache. Slot-ring
   arms: chunk {None, 8} on smollm-135m; h2o-danube-1.8b (window 16)
   with buckets 16 and 32, which runs the ring roll and the saturating
-  per-slot position (ROADMAP C); an int8-KV arm. The slot-ring arms
-  also compare every slot's cache depth after every step.
+  per-slot position (ROADMAP C); an int8-KV arm; minitron-4b and
+  minitron-8b. The slot-ring arms also compare every slot's cache depth
+  after every step. (The mamba2 and zamba2 slot-ring arms are in
+  ``test_torch_ssm_serving.py`` and ``test_torch_hybrid.py``.)
 * Paged vs slot-ring in the port: same completions and observed
   lengths, and the page allocator drains.
 * Scheduler: the port's copy of ``DriftScheduler`` dispatches the same
@@ -17,6 +21,7 @@
 * Isolation: importing the port loads no ``jax`` and no ``repro``.
 """
 
+import functools
 import os
 import re
 import subprocess
@@ -55,6 +60,21 @@ DANUBE_PARAMS_T = params_from_numpy(
     device="cpu")
 
 
+@functools.lru_cache(maxsize=None)
+def _arch(arch):
+    """(jax cfg, port cfg, jax params, port params) of ``arch``'s smoke
+    config in float32; read-only."""
+    if arch == "smollm-135m":
+        return CFG_J, CFG_T, PARAMS_J, PARAMS_T
+    if arch == "h2o-danube-1.8b":
+        return DANUBE_J, DANUBE_T, DANUBE_PARAMS_J, DANUBE_PARAMS_T
+    cfg_j = jax_smoke_config(arch).replace(dtype="float32")
+    cfg_t = smoke_config(arch).replace(dtype="float32")
+    pj = jax_transformer.init(cfg_j, jax.random.PRNGKey(0))
+    return cfg_j, cfg_t, pj, params_from_numpy(
+        cfg_t, jax.tree_util.tree_map(np.asarray, pj), device="cpu")
+
+
 def _plans(n, seed, **kw):
     """The same plan from both packages' generators (checked equal)."""
     gk = dict(total_requests=n, calibration_requests=n, seed=seed, **kw)
@@ -76,15 +96,14 @@ def _record(reqs, sched):
              r.prefill_end, r.exec_end) for r in sched.completed]
 
 
-@pytest.mark.parametrize("chunk", [None, 8])
-@pytest.mark.parametrize("prefix", [False, True])
-def test_engines_emit_the_same_tokens_in_lockstep(chunk, prefix):
+def _paged_lockstep(arch, chunk, prefix):
+    cfg_j, cfg_t, pj, pt = _arch(arch)
     kw = dict(n_slots=3, max_len=96, prompt_buckets=(32, 64), paged=True,
               page_size=8, chunk_prefill_tokens=chunk, prefix_cache=prefix,
               prefix_cache_pages=16)
     js, ts = JaxScheduler("fifo"), DriftScheduler("fifo")
-    je = JaxEngine(CFG_J, PARAMS_J, js, JaxEngineConfig(**kw))
-    te = ServingEngine(CFG_T, PARAMS_T, ts, EngineConfig(**kw), device="cpu")
+    je = JaxEngine(cfg_j, pj, js, JaxEngineConfig(**kw))
+    te = ServingEngine(cfg_t, pt, ts, EngineConfig(**kw), device="cpu")
     jr, tr = _plans(8, seed=3, max_tokens=12,
                     shared_prefix_tokens=16 if prefix else 0,
                     prefix_groups_per_tenant=1)
@@ -113,18 +132,30 @@ def test_engines_emit_the_same_tokens_in_lockstep(chunk, prefix):
         te.prefix_tree.total_pages() if prefix else 0) == te.alloc.n_pages
 
 
+@pytest.mark.parametrize("chunk", [None, 8])
+@pytest.mark.parametrize("prefix", [False, True])
+def test_engines_emit_the_same_tokens_in_lockstep(chunk, prefix):
+    _paged_lockstep("smollm-135m", chunk, prefix)
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "minitron-8b"])
+@pytest.mark.parametrize("chunk,prefix", [(None, False), (8, True)])
+def test_minitron_paged_engines_emit_the_same_tokens_in_lockstep(arch, chunk,
+                                                                 prefix):
+    _paged_lockstep(arch, chunk, prefix)
+
+
 @pytest.mark.parametrize("arch,chunk,buckets,kv", [
     ("smollm-135m", None, (32, 64), "bfloat16"),
     ("smollm-135m", 8, (32, 64), "bfloat16"),
     ("h2o-danube-1.8b", None, (16, 32), "bfloat16"),  # roll + saturation
     ("smollm-135m", 8, (16, 32), "int8"),
+    ("minitron-4b", 8, (32, 64), "bfloat16"),
+    ("minitron-8b", None, (32, 64), "bfloat16"),
 ])
 def test_slot_ring_engines_emit_the_same_tokens_in_lockstep(arch, chunk,
                                                             buckets, kv):
-    cfg_j, cfg_t, pj, pt = ((CFG_J, CFG_T, PARAMS_J, PARAMS_T)
-                            if arch == "smollm-135m" else
-                            (DANUBE_J, DANUBE_T, DANUBE_PARAMS_J,
-                             DANUBE_PARAMS_T))
+    cfg_j, cfg_t, pj, pt = _arch(arch)
     cfg_j, cfg_t = cfg_j.replace(kv_dtype=kv), cfg_t.replace(kv_dtype=kv)
     kw = dict(n_slots=3, max_len=96, prompt_buckets=buckets,
               chunk_prefill_tokens=chunk)
@@ -216,10 +247,10 @@ def test_tokenize_full_vocab_legacy_layout():
 
 def test_engine_refuses_what_later_slices_port():
     sched = DriftScheduler("fifo")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServingEngine(CFG_T.replace(family="ssm"), PARAMS_T, sched,
+    with pytest.raises(NotImplementedError, match=r"later slice.*A7"):
+        ServingEngine(CFG_T.replace(family="encdec"), PARAMS_T, sched,
                       EngineConfig(paged=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match=r"later slice.*A6"):
         ServingEngine(CFG_T.replace(family="vlm"), PARAMS_T, sched,
                       EngineConfig(paged=True), device="cpu")
 
@@ -239,6 +270,7 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.launch.serve, repro_torch.bridge\n"
         "import repro_torch.kernels.ops, repro_torch.configs\n"
         "import repro_torch.launch.train, repro_torch.models.mamba2\n"
+        "import repro_torch.models.hybrid\n"
         "import repro_torch.distributed.optimizer, repro_torch.data.pipeline\n"
         "import repro_torch.distributed.checkpoint, repro_torch.models.steps\n"
         "import repro_torch.cluster, repro_torch.cluster.driver\n"

@@ -50,7 +50,7 @@ from repro_torch.distributed import optimizer as topt
 from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.launch import train as launch_train
 from repro_torch.models import mamba2 as tm
-from repro_torch.models import registry, steps
+from repro_torch.models import hybrid, registry, steps
 from repro_torch.models import transformer as ttr
 
 SSM, DENSE = "mamba2-2.7b", "smollm-135m"
@@ -267,12 +267,13 @@ def test_registry_families():
     cfg = smoke_config(SSM)
     api = registry.get_api(cfg)
     assert api.init is tm.init
-    assert api.prefill is api.decode_step is api.init_cache is None
-    with pytest.raises(NotImplementedError, match="later slice"):
-        registry.get_serving_api(cfg)
-    assert registry.get_serving_api(smoke_config(DENSE)).prefill is ttr.prefill
-    with pytest.raises(NotImplementedError, match="later slice"):
-        registry.get_api(cfg.replace(family="hybrid"))
+    assert (api.prefill, api.decode_step, api.init_cache) == (
+        tm.prefill, tm.decode_step, tm.init_cache)
+    assert registry.get_api(smoke_config(DENSE)).prefill is ttr.prefill
+    assert registry.get_api(smoke_config("zamba2-1.2b")).prefill is hybrid.prefill
+    for family, item in (("vlm", "A6"), ("moe", "A6"), ("encdec", "A7")):
+        with pytest.raises(NotImplementedError, match=f"later slice.*{item}"):
+            registry.get_api(cfg.replace(family=family))
     dense = smoke_config(DENSE)
     _, _, _, pt = _params(DENSE, "float32")
     with pytest.raises(NotImplementedError, match="later slice"):
