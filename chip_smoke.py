@@ -2,9 +2,9 @@
 holds each against its plain PyTorch version, times them, serves
 full-width smollm-135m through the paged and the slot-ring engines and
 through a prefill/decode-disaggregated cluster of paged engines, serves
-full-width minitron-8b (both engines), mamba2-2.7b and zamba2-1.2b
-(slot-ring), and trains full-width mamba2-2.7b and smollm-135m, on one
-GPU.
+full-width minitron-8b (both engines), mamba2-2.7b, zamba2-1.2b and
+whisper-large-v3 (slot-ring), and trains full-width mamba2-2.7b,
+smollm-135m and whisper-large-v3, on one GPU.
 
     python3 chip_smoke.py
 
@@ -38,7 +38,12 @@ first that fails:
                  groups 3 and 4, minitron-8b's 128-token chunk at
                  q_offset 0 and 128, flash attention at L 64 / 256 with
                  group 4 and zamba2's shared block (32 heads, group 1)
-                 at L 4,608 with its window of 4096; the SSD scan at
+                 at L 4,608 with its window of 4096; flash attention
+                 with more queries than keys (Lq 32/40/70 against Lk
+                 16/16/64, causal rows before position 0 zeros) and at
+                 whisper-large-v3's shapes (20 heads of 64: the
+                 encoder's 1,500 x 1,500 non-causal, 64 and 128 queries
+                 against 1,500 keys, a causal 128 bucket); the SSD scan at
                  the JAX test shapes, a ragged L, G 2, L < chunk,
                  mamba2-2.7b's (L 2048 and 1000) and zamba2's shapes,
                  N 256 with a chunk of 100, 16 chunks, and N 4 with
@@ -60,8 +65,10 @@ first that fails:
                  after a 128-token prefix-cache hit, the batched decode
                  also at long context (8 x 1,900-2,047 tokens); the
                  decode call, the chunk and the 64-token flash bucket also
-                 at minitron-8b's heads (D 128, group 4), and the bucket
-                 at zamba2's shared block;
+                 at minitron-8b's heads (D 128, group 4), the bucket
+                 at zamba2's shared block, and whisper-large-v3's
+                 encoder (1,500 x 1,500) and cross-attention (128 x
+                 1,500) calls, non-causal, beside SDPA;
 5. engine        full-width smollm-135m, bf16, 24 requests through
                  DriftScheduler("sjf") and the paged engine, with the
                  kernels' launch counts checked against the iterations;
@@ -131,26 +138,41 @@ first that fails:
 22. engine_zamba2_check  four full-width 256-token prefills (flash
                  kernel) and one decode step, kernel path against plain
                  path gated in float32, the bf16 deviation printed;
-23. train        mamba2-2.7b at full width and depth (64 layers), bf16,
+23. engine_whisper  full-width whisper-large-v3 (32 encoder and 32
+                 decoder layers, d_model 1280, 20 heads of 64, vocab
+                 51,866; 1.53 B params), bf16, 24 requests through the
+                 slot-ring engine at max_len 448: flash launches exactly
+                 96 x prefills (encoder, decoder self- and
+                 cross-attention), no other kernel;
+24. engine_whisper_profile  the same engine under torch.profiler;
+25. engine_whisper_check  one prefill of 4 x 128 tokens over random
+                 frames [4, 1500, 1280] (96 flash launches) and one
+                 decode step, kernel path against plain path gated in
+                 float32, the bf16 deviation printed;
+26. train        mamba2-2.7b at full width and depth (64 layers), bf16,
                  through the training launcher's code: 6 AdamW steps on
                  batch 2 x 2048 synthetic tokens with per-layer remat;
                  SSD launches exactly 2 x 64 x 6 and no attention kernel;
-24. train_profile  one more step of it under torch.profiler, with the
+27. train_profile  one more step of it under torch.profiler, with the
                  device time launched inside the SSD kernel's forward,
                  the plain SSD backward and the AdamW update;
-25. train_check  one step's loss, grad norm and gradients of w_x,
+28. train_check  one step's loss, grad norm and gradients of w_x,
                  out_proj, A_log and the embedding at full width, depth
                  cut to 8 layers: the kernel path against the plain path,
                  within the plain path's own bf16-vs-float32 deviation;
                  beside it, ungated, the plain path at chunk 128 (the
                  same function, summed in another order) against itself;
-26. train_dense  smollm-135m at full width, batch 8 x 512, 4 steps;
+29. train_dense  smollm-135m at full width, batch 8 x 512, 4 steps;
                  flash-attention launches exactly 2 x 30 x 4;
-27. train_dense_check  one step of it at full depth (30 layers): loss,
+30. train_dense_check  one step of it at full depth (30 layers): loss,
                  grad norm and the gradients of wq, wk, wv and the
                  embedding, kernel path against plain path as train_check,
                  but gated in float32 (through 30 bf16 layers the two
-                 bf16 paths decorrelate; their deviation is printed).
+                 bf16 paths decorrelate; their deviation is printed);
+31. train_whisper  whisper-large-v3 at full width and depth, batch 2 x
+                 448 decoder tokens over the launcher's stub frames, 3
+                 AdamW steps with remat: finite losses, flash launches
+                 exactly 2 x 96 x 3.
 
 Each engine, cluster and train phase sets every kernel's launch count
 to 0 just before it runs and reads the counts just after.
@@ -172,6 +194,7 @@ import time
 from pathlib import Path
 from unittest import mock
 
+import numpy as np
 import torch
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): the bound of a
@@ -522,6 +545,18 @@ def kernel_check_phase(dev):
         (1, 64, 64, 32, 8, 128, {}),
         (1, 256, 256, 32, 8, 128, {}),
         (1, 4608, 4608, 32, 32, 128, dict(window=4096)),
+        # more queries than keys (query i at Lk - Lq + i < 0 for the
+        # first Lq - Lk; causal rows there see no key and are zeros)
+        (2, 32, 16, 4, 4, 64, dict(causal=False)),
+        (1, 40, 16, 4, 4, 64, {}),
+        (1, 70, 64, 9, 3, 64, dict(window=16)),
+        # whisper-large-v3 (20 heads of 64, MHA): the encoder's 1,500
+        # frames, cross-attention of 64- and 128-token buckets against
+        # them, and the decoder's 128-token bucket
+        (1, 1500, 1500, 20, 20, 64, dict(causal=False)),
+        (1, 64, 1500, 20, 20, 64, dict(causal=False)),
+        (1, 128, 1500, 20, 20, 64, dict(causal=False)),
+        (1, 128, 128, 20, 20, 64, {}),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for B, Lq, Lk, H, Hk, D, kw in shapes_flash:
@@ -536,10 +571,13 @@ def kernel_check_phase(dev):
                 key = ("flash", str(dtype).split(".")[-1])
                 worst[key] = max(worst.get(key, 0.0), err)
                 n_cases += 1
-                if not within(got, want, dtype):
+                # causal rows before position 0 see no key: zeros
+                empty = max(Lq - Lk, 0) if kw.get("causal", True) else 0
+                if not within(got, want, dtype) or got[:, :empty].any():
                     fail(f"flash kernel vs plain: {dtype} B{B} Lq{Lq} Lk{Lk} "
                          f"H{H} Hk{Hk} D{D} {kw} softcap={softcap}: max abs "
-                         f"err {err} > tol {TOL[dtype]}")
+                         f"err {err} > tol {TOL[dtype]} (or one of the "
+                         f"{empty} rows with no visible key not zero)")
     shapes_ssd = [  # B, L, H, G, P, N, chunk
         (1, 128, 4, 1, 16, 16, 32),       # the JAX test shapes
         (2, 256, 8, 2, 32, 64, 64),
@@ -755,11 +793,12 @@ def kernels_per_call(fn):
                and not e.key.startswith("Memset"))
 
 
-# the attention heads (H, Hk, D) of full-width smollm-135m, minitron-8b
-# and zamba2-1.2b's shared block
+# the attention heads (H, Hk, D) of full-width smollm-135m, minitron-8b,
+# zamba2-1.2b's shared block and whisper-large-v3
 SMOLLM_HEADS = (9, 3, 64)
 MINITRON_8B_HEADS = (32, 8, 128)
 ZAMBA2_HEADS = (32, 32, 128)
+WHISPER_HEADS = (20, 20, 64)
 
 
 def decode_timing_scene(dev, heads=SMOLLM_HEADS):
@@ -1066,6 +1105,36 @@ def kernel_times_phase(dev):
                                    enable_gqa=True), flush),
             bytes=n_bytes, flops=flops))
 
+    # whisper-large-v3's two non-causal calls, beside the table's row:
+    # "w3 enc", the encoder's 1,500 x 1,500 frames, and "w3 cross", the
+    # decoder's 128-token bucket against them. SDPA with is_causal=False
+    # computes the same function.
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for Lq, path in ((1500, "w3 enc: encoder (whisper-large-v3)"),
+                     (128, "w3 cross: cross-attention (whisper-large-v3)")):
+        q, k, v = flash_inputs(gen, 1, Lq, 1500, *WHISPER_HEADS,
+                               torch.bfloat16, dev)
+        got = ops.attention(q, k, v, causal=False, impl="cuda")
+        want = ops.attention(q, k, v, causal=False, impl="reference")
+        err = max_err(got, want)
+        if not within(got, want, torch.bfloat16):
+            fail(f"flash kernel vs plain, {path}: max abs err {err}")
+        sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        n_bytes, flops = flash_bound(q, k, causal=False)
+        extra.append(dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:124",
+            max_abs_err=err, batch=1, tokens=Lq, keys=1500,
+            heads=WHISPER_HEADS, causal=False, path=path,
+            **timings(lambda: ops.attention(q, k, v, causal=False,
+                                            impl="cuda"),
+                      lambda: ops.attention(q, k, v, causal=False,
+                                            impl="reference"),
+                      lambda: sdpa(sq, sk, sv, is_causal=False), flush),
+            bytes=n_bytes, flops=flops))
+        del q, k, v, sq, sk, sv, got, want
+
     # the trainer's SSD call on mamba2-2.7b: batch 2 x 2048 tokens, 80
     # heads of 64, state 128, one group, chunk 256, bf16
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1245,15 +1314,16 @@ def engine_phase(dev):
 
 
 def engine_slot_phase(cfg, params, dev, label="engine_slot",
-                      flash_per_prefill=None, gen_kw=None, **fields):
-    """The slot-ring engine (paged=False) on the same model: each
-    admission prefills its bucket in one shot (one flash-attention
+                      flash_per_prefill=None, gen_kw=None,
+                      ecfg=SLOT_ENGINE, **fields):
+    """The slot-ring engine (``ecfg``, paged=False) on the same model:
+    each admission prefills its bucket in one shot (one flash-attention
     launch per attention layer: ``flash_per_prefill``, default
     ``n_layers``; 0 for an SSM), then decodes from the contiguous cache
     (or the O(1) states). ``gen_kw`` goes to the request generator."""
     if flash_per_prefill is None:
         flash_per_prefill = cfg.n_layers
-    eng, sched, reqs = serve(cfg, params, dev, SLOT_ENGINE, 24, 0,
+    eng, sched, reqs = serve(cfg, params, dev, ecfg, 24, 0,
                              **(gen_kw or {}))
     metrics, wall, launches = drain(eng)
     tokens = sum(r.observed_output_tokens for r in sched.completed)
@@ -1261,9 +1331,9 @@ def engine_slot_phase(cfg, params, dev, label="engine_slot",
     prefills = sum(r.prefill_end is not None for r in sched.completed)
     buckets = {}
     for r in sched.completed:
-        b = next((b for b in SLOT_ENGINE["prompt_buckets"]
+        b = next((b for b in ecfg["prompt_buckets"]
                   if max(r.prompt_tokens, 1) <= b),
-                 SLOT_ENGINE["prompt_buckets"][-1])
+                 ecfg["prompt_buckets"][-1])
         buckets[b] = buckets.get(b, 0) + 1
     phase(label, arch=cfg.name, n_layers=cfg.n_layers,
           dtype=cfg.dtype, wall_s=wall, iterations=eng.step_count,
@@ -1275,7 +1345,7 @@ def engine_slot_phase(cfg, params, dev, label="engine_slot",
               **fields, flash_per_prefill=flash_per_prefill,
               peak_memory_gb=peak_gb(),
               cache_bytes_per_slot={
-                  k: t.nbytes // SLOT_ENGINE["n_slots"]
+                  k: t.nbytes // ecfg["n_slots"]
                   for k, t in eng.cache.items()})))
     if metrics.n_completed != len(reqs) or prefills != len(reqs):
         fail(f"{label} completed {metrics.n_completed} of "
@@ -1630,6 +1700,67 @@ def engine_zamba2_phases(dev, card):
     torch.cuda.empty_cache()
 
 
+# whisper-large-v3 on the slot-ring cache: SLOT_ENGINE's 8 slots and
+# buckets, max_len 448 (its published max_target_positions)
+WHISPER_ENGINE = dict(SLOT_ENGINE, max_len=448)
+
+
+def whisper_flash_per_prefill(cfg):
+    """B4 launches of one encdec prefill: each encoder layer's
+    self-attention, each decoder layer's causal self-attention and its
+    cross-attention."""
+    return cfg.n_enc_layers + 2 * cfg.n_layers
+
+
+def engine_whisper_phases(dev, card):
+    """Full-width whisper-large-v3 (32 encoder and 32 decoder layers,
+    bf16) on the slot-ring engine: B4 96 times a prefill (encoder 1,500
+    x 1,500 non-causal, decoder causal, cross-attention bucket x 1,500)
+    and nothing else; its profile; and one prefill of 4 x 128 tokens
+    over random frames and one decode step, B4 against plain, gated in
+    float32."""
+    from repro_torch.models import encdec
+    cfg, params, fields = init_on_card("whisper-large-v3", dev, card, 18)
+    per_prefill = whisper_flash_per_prefill(cfg)
+    engine_slot_phase(cfg, params, dev, "engine_whisper",
+                      flash_per_prefill=per_prefill, ecfg=WHISPER_ENGINE,
+                      n_enc_layers=cfg.n_enc_layers,
+                      max_len=WHISPER_ENGINE["max_len"], **fields)
+    engine_profile_phase(cfg, params, dev, "engine_whisper_profile",
+                         WHISPER_ENGINE, fields=dict(card=card))
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    tokens = torch.randint(1, cfg.vocab, (4, 128), generator=gen, device=dev)
+    step = torch.randint(1, cfg.vocab, (4,), generator=gen, device=dev)
+    frames = 0.02 * torch.randn(4, cfg.enc_seq, cfg.d_model, generator=gen,
+                                device=dev)
+    p32, c32 = _cast(params, torch.float32), cfg.replace(dtype="float32")
+
+    def run(p, c, impl):
+        lp, cache = encdec.prefill(c, p, tokens, frames=frames,
+                                   max_len=WHISPER_ENGINE["max_len"],
+                                   impl=impl)
+        ld, _ = encdec.decode_step(c, p, cache, step, cache["lens"])
+        return lp.float(), ld.float()
+
+    reset_launches()
+    kern = run(params, cfg, "auto")
+    launches = read_launches()
+    plain, plain32 = run(params, cfg, "reference"), run(p32, c32, "reference")
+    kern32 = run(p32, c32, "auto")
+    torch.cuda.synchronize()
+    if {k: n for k, n in launches.items() if n} != \
+            {"flash_attention": per_prefill}:
+        fail(f"engine_whisper_check: launches {launches}, want "
+             f"{per_prefill} flash launches for one prefill")
+    check_logits("engine_whisper_check", kern, plain, plain32, kern32=kern32,
+                 arch=cfg.name, n_layers=cfg.n_layers,
+                 n_enc_layers=cfg.n_enc_layers, batch=4, tokens=128,
+                 frames="0.02 N(0, 1), seed 19", launches=launches, card=card)
+    del params, p32, frames
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # prefill/decode disaggregation over the paged engines
 # ---------------------------------------------------------------------------
@@ -1827,6 +1958,9 @@ def cluster_pd_check_phase(cfg, params, drv, dev):
 TRAIN = dict(arch="mamba2-2.7b", batch=2, seq=2048, steps=6, lr=3e-4)
 TRAIN_CHECK_LAYERS = 8
 DENSE_TRAIN = dict(arch="smollm-135m", batch=8, seq=512, steps=4, lr=3e-4)
+# 448 decoder tokens: whisper's published max_target_positions
+WHISPER_TRAIN = dict(arch="whisper-large-v3", batch=2, seq=448, steps=3,
+                     lr=3e-4)
 
 
 def n_params(tree, in_bytes=False) -> int:
@@ -1834,13 +1968,15 @@ def n_params(tree, in_bytes=False) -> int:
     return sum(t.nbytes if in_bytes else t.numel() for t in tree_leaves(tree))
 
 
-def run_steps(setup, n, dev):
-    """``n`` train steps through the launcher's code from step 0, with
-    every launch count set to 0 just before and read just after: (per
-    step (loss, grad norm, seconds), launches)."""
+def run_steps(cfg, setup, n, dev):
+    """``n`` train steps through the launcher's code from step 0 (its
+    batches, with the stub frontend inputs drawn as the launcher draws
+    them), with every launch count set to 0 just before and read just
+    after: (per step (loss, grad norm, seconds), launches)."""
     from repro_torch.launch.train import batch_on
     params, opt_state, step_fn, ds = setup
-    batches = [batch_on(ds, s, dev) for s in range(n)]
+    rng = np.random.default_rng(0)
+    batches = [batch_on(cfg, ds, s, rng, dev) for s in range(n)]
     log = []
     reset_launches()
     torch.cuda.synchronize()
@@ -1871,7 +2007,7 @@ def train_phase(dev):
     cfg, setup = train_setup(TRAIN, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    log, launches = run_steps(setup, TRAIN["steps"], dev)
+    log, launches = run_steps(cfg, setup, TRAIN["steps"], dev)
     secs = statistics.median(t for _, _, t in log[1:])
     tokens = TRAIN["batch"] * TRAIN["seq"]
     want = 2 * cfg.n_layers * TRAIN["steps"]
@@ -1894,7 +2030,7 @@ def train_phase(dev):
     return cfg, setup
 
 
-def train_profile_phase(setup, dev):
+def train_profile_phase(cfg, setup, dev):
     """One more step of the same trainer under torch.profiler, with the
     device time of the kernels launched inside each profiler range of
     the step: the SSD kernel's forward calls, the plain SSD backward
@@ -1905,7 +2041,7 @@ def train_profile_phase(setup, dev):
     from repro_torch.models.steps import OPTIMIZER_UPDATE
     ranges = (ops.SSD_FORWARD, ops.SSD_BACKWARD, OPTIMIZER_UPDATE)
     params, opt_state, step_fn, ds = setup
-    batch = batch_on(ds, TRAIN["steps"], dev)
+    batch = batch_on(cfg, ds, TRAIN["steps"], np.random.default_rng(0), dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1966,8 +2102,9 @@ def train_check_phase(dev, label, spec, names, kernel, n_layers=None,
     cfg = full.replace(n_layers=n_layers or full.n_layers)
     params = get_api(cfg).init(cfg, torch.Generator(device=dev).manual_seed(0),
                                device=dev)
-    batch = batch_on(make_dataset("synthetic", cfg, spec["seq"],
-                                  spec["batch"]), 0, dev)
+    batch = batch_on(cfg, make_dataset("synthetic", cfg, spec["seq"],
+                                       spec["batch"]), 0,
+                     np.random.default_rng(0), dev)
 
     def run(impl, dtype, c=cfg):
         p = params if dtype is None else _cast(params, dtype)
@@ -2027,7 +2164,7 @@ def train_dense_phase(dev):
     """Full-width smollm-135m: 4 AdamW steps on batch 8 x 512, remat on;
     the flash kernel runs twice per layer and step."""
     cfg, setup = train_setup(DENSE_TRAIN, dev)
-    log, launches = run_steps(setup, DENSE_TRAIN["steps"], dev)
+    log, launches = run_steps(cfg, setup, DENSE_TRAIN["steps"], dev)
     want = 2 * cfg.n_layers * DENSE_TRAIN["steps"]
     secs = statistics.median(t for _, _, t in log[1:])
     phase("train_dense", arch=cfg.name, n_layers=cfg.n_layers,
@@ -2046,6 +2183,43 @@ def train_dense_phase(dev):
     if any(others.values()):
         fail(f"train_dense: a kernel of another path ran: {others}")
     return launches
+
+
+def train_whisper_phase(dev, card):
+    """Full-width whisper-large-v3: 3 AdamW steps on batch 2 x 448
+    decoder tokens over the launcher's stub frames (2 x 1,500 x 1,280),
+    remat on: B4 runs for every encoder and decoder attention in the
+    forward and again in its recompute, 2 x 96 a step."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, setup = train_setup(WHISPER_TRAIN, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log, launches = run_steps(cfg, setup, WHISPER_TRAIN["steps"], dev)
+    want = 2 * whisper_flash_per_prefill(cfg) * WHISPER_TRAIN["steps"]
+    secs = statistics.median(t for _, _, t in log[1:])
+    phase("train_whisper", arch=cfg.name, n_layers=cfg.n_layers,
+          n_enc_layers=cfg.n_enc_layers, dtype=cfg.dtype,
+          params=n_params(setup[0]), param_count=cfg.param_count(),
+          batch=WHISPER_TRAIN["batch"], seq=WHISPER_TRAIN["seq"],
+          frames=[WHISPER_TRAIN["batch"], cfg.enc_seq, cfg.d_model],
+          remat=True, init_s=init_s, loss=[l for l, _, _ in log],
+          grad_norm=[g for _, g, _ in log], step_s=[t for _, _, t in log],
+          median_step_s_2_to_3=secs,
+          tokens_per_s=WHISPER_TRAIN["batch"] * WHISPER_TRAIN["seq"] / secs,
+          peak_memory_gb=peak_gb(), launches=launches,
+          flash_launches_expected=want, card=card)
+    if not all(math.isfinite(l) and math.isfinite(g) for l, g, _ in log):
+        fail(f"train_whisper: a loss or grad norm is not finite: {log}")
+    if launches["flash_attention"] != want:
+        fail(f"train_whisper: {launches['flash_attention']} flash launches, "
+             f"want 2 x {whisper_flash_per_prefill(cfg)} x "
+             f"{WHISPER_TRAIN['steps']} = {want}")
+    others = {k: n for k, n in launches.items() if k != "flash_attention"}
+    if any(others.values()):
+        fail(f"train_whisper: a kernel of another path ran: {others}")
+    del setup
+    torch.cuda.empty_cache()
 
 
 def _cast(tree, dtype):
@@ -2084,10 +2258,11 @@ def main() -> int:
     engine_mamba2_phases(dev, card)
     engine_mamba2_check_phase(dev, card)
     engine_zamba2_phases(dev, card)
+    engine_whisper_phases(dev, card)
 
-    _, setup = train_phase(dev)
+    train_cfg, setup = train_phase(dev)
     train_launches = read_launches()
-    train_profile_phase(setup, dev)
+    train_profile_phase(train_cfg, setup, dev)
     del setup
     torch.cuda.empty_cache()
     train_check_phase(dev, "train_check", TRAIN, {
@@ -2102,6 +2277,8 @@ def main() -> int:
         "wq": ("layers", "attn", "wq"), "wk": ("layers", "attn", "wk"),
         "wv": ("layers", "attn", "wv"), "embed": ("embed", "table")},
         "flash_attention", gate="float32")
+    torch.cuda.empty_cache()
+    train_whisper_phase(dev, card)
 
     # each kernel's launches on the run whose path it is on: the engines'
     # for the attention kernels (the per-sequence paged decode is on no

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
 launchers. Lists the archs whose family the port runs, trained and
-served: the dense ones, mamba2-2.7b (ssm) and zamba2-1.2b (hybrid). The
-rest of the JAX package's catalog joins as their model families are
-ported (ROADMAP.md: encdec A7, vlm and MoE A6)."""
+served: the dense ones, whisper-large-v3 (encdec), mamba2-2.7b (ssm)
+and zamba2-1.2b (hybrid). The rest of the JAX package's catalog joins
+as their model families are ported (ROADMAP.md: vlm and MoE, A6)."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ _MODULES: Dict[str, str] = {
     "smollm-135m": "smollm_135m",
     "minitron-4b": "minitron_4b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "whisper-large-v3": "whisper_large_v3",
     "mamba2-2.7b": "mamba2_2_7b",
     "zamba2-1.2b": "zamba2_1_2b",
 }

@@ -3,7 +3,9 @@
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention
 // (Pallas body _flash_kernel). Queries [B, Lq, H, D] attend keys and
 // values [B, Lk, Hk, D], queries aligned to the end of the keys (query
-// i sits at position q_off + i, q_off = Lk - Lq). A score survives iff
+// i sits at position q_off + i, q_off = Lk - Lq; q_off < 0 when Lq > Lk,
+// and then a causal row at a negative position sees no key: its block's
+// key range [lo, hi) is empty or its mask drops every key). A score survives iff
 //   (!causal || k_pos <= q_pos) && (window <= 0 || q_pos - k_pos < window)
 // or k_pos < prefix_len (prefix-LM, OR'd in), and k_pos < Lk. The
 // optional logit softcap c tanh(s / c) is applied to the scaled dot

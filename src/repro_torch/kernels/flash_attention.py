@@ -3,7 +3,9 @@
 Port of the JAX package's ``kernels/flash_attention.py::
 flash_attention``. Queries ``[B, Lq, H, D]`` attend keys and values
 ``[B, Lk, Hk, D]`` with the queries aligned to the end of the keys
-(query ``i`` sits at position ``Lk - Lq + i``):
+(query ``i`` sits at position ``Lk - Lq + i``, negative for the first
+``Lq - Lk`` queries when there are more queries than keys, as in a
+decoder bucket longer than the encoder's keys under cross-attention):
 
 * ``causal``: a key is visible iff ``k_pos <= q_pos``;
 * ``window``: and ``q_pos - k_pos < window``;
@@ -50,9 +52,6 @@ def flash_attention(
     if Bk != B or Dk != D or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if Lq > Lk:
-        raise ValueError(f"{Lq} queries against {Lk} keys: queries align "
-                         "to the end of the keys, so Lq must be <= Lk")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if q.device.type == "cpu":

@@ -9,7 +9,10 @@ kernels' plain versions). Random init from ``--seed`` on a generator on
 the run's device; per-layer remat on. ``--preset smoke`` runs the
 arch's reduced config, ``full`` its published widths. Checkpoint /
 restart with ``--checkpoint-dir`` and ``--resume``. The JAX launcher's
-``--compile-only`` (a TPU-mesh dry run) comes with ROADMAP.md A9.
+``--compile-only`` (a TPU-mesh dry run) comes with ROADMAP.md A9. As
+there, each step's batch carries the stub frontend inputs of the
+encoder-decoder (``frames``) from one ``numpy.random.default_rng(0)``
+drawn once a step (``data.pipeline.attach_modality_stubs``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from ..configs import ARCHS, get_config, smoke_config
-from ..data.pipeline import make_dataset
+from ..data.pipeline import attach_modality_stubs, make_dataset
 from ..distributed.checkpoint import CheckpointManager
 from ..distributed.optimizer import Optimizer, OptimizerConfig
 from ..models.config import ModelConfig
@@ -45,9 +48,14 @@ def build(cfg: ModelConfig, *, steps: int, lr: float, seed: int,
             make_train_step(cfg, opt, remat=remat, impl=impl))
 
 
-def batch_on(ds, step: int, device: torch.device) -> Dict[str, torch.Tensor]:
+def batch_on(cfg: ModelConfig, ds, step: int, rng: np.random.Generator,
+             device: torch.device) -> Dict[str, torch.Tensor]:
+    """Step ``step``'s batch of ``ds`` with the family's stub inputs
+    drawn from ``rng`` (none for a family without them), on
+    ``device``."""
+    batch = attach_modality_stubs(cfg, ds.batch(step), rng)
     return {k: torch.from_numpy(np.asarray(v)).to(device)
-            for k, v in ds.batch(step).items()}
+            for k, v in batch.items()}
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -87,10 +95,11 @@ def main(argv: Optional[list] = None) -> int:
             params, opt_state = state["params"], state["opt"]
             print(f"resumed from step {start}")
 
+    rng = np.random.default_rng(0)
     t0 = time.time()
     for step in range(start, args.steps):
         params, opt_state, m = step_fn(params, opt_state,
-                                       batch_on(ds, step, device))
+                                       batch_on(cfg, ds, step, rng, device))
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss={float(m['loss']):.4f} "
                   f"gnorm={float(m['grad_norm']):.3f} "

@@ -3,12 +3,13 @@ params as dicts).
 
 The subset of the JAX package's ``models/layers.py`` that the dense
 serving paths (paged and slot-ring, with the int8 KV cache's
-quantisation), the SSM and hybrid models and the training forwards run,
-with its conventions and layouts kept:
+quantisation), the SSM, hybrid and encoder-decoder models and the
+training forwards run, with its conventions and layouts kept:
 
 * attention weights are head-split: wq [d, H, hd], wk/wv [d, Hk, hd],
   wo [H, hd, d]; MLP w1/w3 [d, ff], w2 [ff, d]; embedding table [V, d];
-* activations flow in ``cfg.dtype``; norms and rope compute in float32.
+* activations flow in ``cfg.dtype``; norms, rope and sinusoidal
+  positions compute in float32.
 """
 
 from __future__ import annotations
@@ -71,6 +72,32 @@ def run_layers(body, x: torch.Tensor, layers: "Dict | List[Dict]", *,
 # ---------------------------------------------------------------------------
 # init helpers (random draws on an explicit generator; float32, then cast)
 # ---------------------------------------------------------------------------
+
+def init_stacked(n: int, draw_layer) -> Dict:
+    """The params of ``n`` layers stacked on a leading axis: layer ``i``
+    is drawn by ``draw_layer()`` (a nested dict of tensors) and written
+    into its row of leaves allocated on the first draw, so the weights
+    are held once (minitron-8b: 19.8 GB in bf16)."""
+    def alloc(node):
+        if isinstance(node, dict):
+            return {k: alloc(v) for k, v in node.items()}
+        return node.new_empty((n, *node.shape))
+
+    def write(dst, node, i):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                write(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    stacked = None
+    for i in range(n):
+        lp = draw_layer()
+        if stacked is None:
+            stacked = alloc(lp)
+        write(stacked, lp, i)
+    return stacked
+
 
 def dense_init(gen: torch.Generator, shape, fan_in: Optional[int] = None,
                dtype: torch.dtype = torch.bfloat16,
@@ -152,6 +179,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(length: int, d_model: int,
+                         device: "str | torch.device") -> torch.Tensor:
+    """[length, d_model] float32 rows ``sin(p / 10000**(2i/d)) ||
+    cos(...)`` for positions ``0 .. length - 1``."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    return _sinusoid(pos, d_model)
+
+
+def sinusoidal_at(pos: "int | torch.Tensor", d_model: int,
+                  device: "str | torch.device") -> torch.Tensor:
+    """The sinusoidal row(s) at ``pos`` (a scalar or [B]): [d_model] or
+    [B, d_model] float32."""
+    posf = torch.as_tensor(pos, device=device).float()[..., None]
+    return _sinusoid(posf, d_model)
+
+
+def _sinusoid(posf: torch.Tensor, d_model: int) -> torch.Tensor:
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=posf.device)
+    angle = posf / 10_000.0 ** (dim / d_model)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # attention projections and the MLP
 # ---------------------------------------------------------------------------
@@ -188,22 +238,39 @@ def qkv_project(p: Dict, x: torch.Tensor
 
 
 def attention_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
+                    causal: bool = True,
                     window: Optional[int] = None,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
                     impl: str = "auto") -> torch.Tensor:
-    """Full-sequence causal self-attention (training), x [B, L, width]:
-    project, rope at ``0..L-1``, one flash-attention call within
-    ``window``, merge the heads. Returns [B, L, width]. (The JAX layer's
-    ``positions``, ``prefix_len`` and cross-attention ``kv_override``
-    come with the vlm and encdec families.)"""
+    """Full-sequence attention (training, prefill), x [B, L, width]:
+    project, rope at ``0..L-1``, one flash-attention call (``causal``,
+    within ``window``), merge the heads. Returns [B, L, width]. With
+    ``kv_override`` (cross-attention: K/V ``[B, Lk, Hk, hd]`` from
+    :func:`cross_kv`) only q is projected, without rope, and attention
+    is not causal. (The JAX layer's ``positions`` and ``prefix_len``
+    come with the vlm family.)"""
     B, L, _ = x.shape
-    q, k, v = qkv_project(p, x)
-    if cfg.pos == "rope":
-        pos = torch.arange(L, device=x.device)[None].expand(B, L)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
-    out = ops.attention(q, k, v, causal=True, window=window,
+    if kv_override is None:
+        q, k, v = qkv_project(p, x)
+        if cfg.pos == "rope":
+            pos = torch.arange(L, device=x.device)[None].expand(B, L)
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+    else:
+        q = project_heads(x, p["wq"])
+        k, v = kv_override
+        causal = False
+    out = ops.attention(q, k, v, causal=causal, window=window,
                         logit_softcap=cfg.logit_softcap, impl=impl)
     return merge_heads(out, p["wo"])
+
+
+def cross_kv(p: Dict, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V ``[B, Le, Hk, hd]`` of the encoder output
+    ``enc_out [B, Le, d]`` (computed once a prefill, then cached)."""
+    return project_heads(enc_out, p["wk"]), project_heads(enc_out, p["wv"])
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -228,6 +295,7 @@ def attention_decode(
     pos: "int | torch.Tensor",          # [] or [B] absolute position
     cache_len: torch.Tensor,            # [B] valid entries AFTER this write
     *,
+    cross: bool = False,
     kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Cached single-token decode. Writes the new K/V into ring slot
@@ -235,11 +303,20 @@ def attention_decode(
     batch or one position per slot), then attends over the valid cache.
     With ``kv_scales`` (the int8 cache, in place too) the new entry is
     quantised on write and the cache dequantised to q's dtype for
-    attention. Returns out [B, d]."""
+    attention. With ``cross`` the caches are the static cross-attention
+    K/V: only q is projected, nothing is written, and ``cache_len`` is
+    the encoder's length. Returns out [B, d]."""
     B = x.shape[0]
     S = k_cache.shape[1]
-    q, k_new, v_new = qkv_project(p, x)              # [B, H|Hk, hd]
     pos = torch.as_tensor(pos, device=x.device).long()
+    if cross:
+        q = project_heads(x, p["wq"])
+        if cfg.pos == "rope":
+            q = apply_rope(q, pos.expand(B), cfg.rope_theta)
+        out = ops.decode_attention(q, k_cache, v_cache, cache_len,
+                                   logit_softcap=cfg.logit_softcap)
+        return merge_heads(out, p["wo"])
+    q, k_new, v_new = qkv_project(p, x)              # [B, H|Hk, hd]
     if cfg.pos == "rope":
         posb = pos.expand(B)
         q = apply_rope(q, posb, cfg.rope_theta)

@@ -3,20 +3,21 @@ call.
 
 Port of the JAX package's ``models/registry.py`` for the families the
 port runs so far, each trained and served: the dense transformer (both
-engine caches), the SSM family (Mamba-2) and the hybrid (zamba2), the
-last two on the slot-ring cache:
+engine caches), the encoder-decoder (whisper), the SSM family (Mamba-2)
+and the hybrid (zamba2), the last three on the slot-ring cache:
 
     api = get_api(cfg)
     params = api.init(cfg, gen, device=...)
     logits, aux = api.forward(cfg, params, batch, remat=..., impl=...)
-    logits, cache = api.prefill(cfg, params, tokens, max_len=...)
+    logits, cache = api.prefill(cfg, params, batch, max_len=...)
     logits, cache = api.decode_step(cfg, params, cache, tokens, pos)
     cache = api.init_cache(cfg, batch_size, max_len, device=...)
 
-``forward`` takes a ``batch`` dict, as in JAX (the vlm and encdec
-modality inputs travel in it); ``prefill`` takes the tokens directly.
+``forward`` and ``prefill`` take a ``batch`` dict, as in JAX: the
+tokens, and the modality inputs that the adapters route to the family's
+keyword (encdec ``frames``; vlm ``patches`` with a later slice).
 :func:`get_api` refuses the families the port does not run yet, up
-front: vlm and MoE (ROADMAP.md, A6) and encdec (A7).
+front: vlm and MoE (ROADMAP.md, A6).
 """
 
 from __future__ import annotations
@@ -24,11 +25,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict
 
-from . import hybrid, mamba2, transformer
+from . import encdec, hybrid, mamba2, transformer
 from .config import ModelConfig
 
 # the families later slices port -> their ROADMAP.md item
-_LATER = {"vlm": "A6", "moe": "A6", "encdec": "A7"}
+_LATER = {"vlm": "A6", "moe": "A6"}
 
 
 @dataclass(frozen=True)
@@ -47,15 +48,29 @@ def _later(family: str) -> NotImplementedError:
         f"slice (ROADMAP.md, {item})")
 
 
-def _tf_forward(cfg, params, batch, *, remat=False, impl="auto"):
+def _tokens_only(batch: Dict):
     if batch.get("patches") is not None:
         raise _later("vlm")
-    return transformer.forward(cfg, params, batch["tokens"], remat=remat,
+    return batch["tokens"]
+
+
+def _tf_forward(cfg, params, batch, *, remat=False, impl="auto"):
+    return transformer.forward(cfg, params, _tokens_only(batch), remat=remat,
                                impl=impl)
+
+
+def _tf_prefill(cfg, params, batch, *, max_len=None, impl="auto"):
+    return transformer.prefill(cfg, params, _tokens_only(batch),
+                               max_len=max_len, impl=impl)
 
 
 def _mamba_forward(cfg, params, batch, *, remat=False, impl="auto"):
     return mamba2.forward(cfg, params, batch["tokens"], remat=remat,
+                          impl=impl)
+
+
+def _mamba_prefill(cfg, params, batch, *, max_len=None, impl="auto"):
+    return mamba2.prefill(cfg, params, batch["tokens"], max_len=max_len,
                           impl=impl)
 
 
@@ -64,13 +79,30 @@ def _hybrid_forward(cfg, params, batch, *, remat=False, impl="auto"):
                           impl=impl)
 
 
+def _hybrid_prefill(cfg, params, batch, *, max_len=None, impl="auto"):
+    return hybrid.prefill(cfg, params, batch["tokens"], max_len=max_len,
+                          impl=impl)
+
+
+def _encdec_forward(cfg, params, batch, *, remat=False, impl="auto"):
+    return encdec.forward(cfg, params, batch["tokens"],
+                          frames=batch["frames"], remat=remat, impl=impl)
+
+
+def _encdec_prefill(cfg, params, batch, *, max_len=None, impl="auto"):
+    return encdec.prefill(cfg, params, batch["tokens"],
+                          frames=batch["frames"], max_len=max_len, impl=impl)
+
+
 _FAMILY_API: Dict[str, ModelApi] = {
-    "dense": ModelApi(transformer.init, _tf_forward, transformer.prefill,
+    "dense": ModelApi(transformer.init, _tf_forward, _tf_prefill,
                       transformer.decode_step, transformer.init_cache),
-    "ssm": ModelApi(mamba2.init, _mamba_forward, mamba2.prefill,
+    "ssm": ModelApi(mamba2.init, _mamba_forward, _mamba_prefill,
                     mamba2.decode_step, mamba2.init_cache),
-    "hybrid": ModelApi(hybrid.init, _hybrid_forward, hybrid.prefill,
+    "hybrid": ModelApi(hybrid.init, _hybrid_forward, _hybrid_prefill,
                        hybrid.decode_step, hybrid.init_cache),
+    "encdec": ModelApi(encdec.init, _encdec_forward, _encdec_prefill,
+                       encdec.decode_step, encdec.init_cache),
 }
 
 

@@ -44,26 +44,16 @@ def _check_family(cfg: ModelConfig) -> None:
 def init(cfg: ModelConfig, gen: torch.Generator,
          device: "str | torch.device" = "cuda") -> Dict:
     """Random params from ``gen`` (std ``fan_in**-0.5`` projections,
-    0.02 embeddings, zero norm scales), in ``cfg.dtype`` on ``device``.
-    Layer by layer, each written into its row of the stacked leaves as
-    it is drawn, so the weights are held once (minitron-8b: 19.8 GB in
-    bf16)."""
+    0.02 embeddings, zero norm scales), in ``cfg.dtype`` on ``device``,
+    layer by layer into the stacked leaves (``layers.init_stacked``)."""
     _check_family(cfg)
     device = nn.resolve_device(device)
     d = cfg.d_model
-    stacked = None
-    for i in range(cfg.n_layers):
-        lp = {"ln1": nn.init_norm(cfg, device),
-              "attn": nn.init_attention(gen, cfg, device),
-              "ln2": nn.init_norm(cfg, device),
-              "mlp": nn.init_mlp(gen, cfg, device)}
-        if stacked is None:
-            stacked = {group: {name: w.new_empty((cfg.n_layers, *w.shape))
-                               for name, w in ws.items()}
-                       for group, ws in lp.items()}
-        for group, ws in lp.items():
-            for name, w in ws.items():
-                stacked[group][name][i] = w
+    stacked = nn.init_stacked(cfg.n_layers, lambda: {
+        "ln1": nn.init_norm(cfg, device),
+        "attn": nn.init_attention(gen, cfg, device),
+        "ln2": nn.init_norm(cfg, device),
+        "mlp": nn.init_mlp(gen, cfg, device)})
     params = {
         "embed": {"table": nn.embed_init(gen, (cfg.vocab, d), nn.dt(cfg),
                                          device)},

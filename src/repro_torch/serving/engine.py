@@ -1,8 +1,9 @@
 """The continuous-batching serving engine of the port.
 
 Port of the JAX package's ``serving/engine.py`` for the dense
-transformer, on both of its caches, and for the SSM (Mamba-2) and
-hybrid (zamba2) families on the slot-ring cache. It drives the identical
+transformer, on both of its caches, and for the encoder-decoder
+(whisper), SSM (Mamba-2) and hybrid (zamba2) families on the slot-ring
+cache. It drives the identical
 ``DriftScheduler`` state machine — admission, dispatch, completion
 feedback (Eq. 5-6) — and, on the paged path, the identical page
 bookkeeping (``kv_cache.PagedSeqLedger`` with the shared-prefix
@@ -13,9 +14,11 @@ and requests.
 * Slot-ring cache (``EngineConfig.paged=False``, the default): a
   fixed ring of ``n_slots`` contiguous per-slot caches
   (``api.init_cache``; a window-sized ring for sliding-window archs;
-  the O(1) conv and SSM states of the Mamba layers). A slot's prompt
-  bucket prefills in one shot through ``api.prefill`` (one
-  flash-attention kernel launch per attention layer) the iteration its
+  the O(1) conv and SSM states of the Mamba layers; the static
+  cross-attention K/V of the encoder-decoder). A slot's prompt bucket
+  prefills in one shot through ``api.prefill`` (one flash-attention
+  kernel launch per attention layer; an encoder-decoder's batch carries
+  the stub frontend's zero ``frames``, as in JAX) the iteration its
   last prompt chunk is consumed, and the resulting cache is copied into the
   slot. Every slot decodes each step through ``api.decode_step`` at its
   own depth (``pos = cache["lens"]``); a free slot's lane computes
@@ -50,8 +53,8 @@ and requests.
 
 The pool holds one extra page the allocator never hands out; inactive
 slots scatter their masked decode writes there. Both caches are updated
-in place. The vlm, MoE and encdec families come with later slices
-(ROADMAP.md, A6 and A7).
+in place. The vlm and MoE families come with a later slice (ROADMAP.md,
+A6).
 
 EOS: with randomly-initialised models there is no semantic EOS, so
 requests stop at their ground-truth output length (oracle EOS, clipped
@@ -123,7 +126,8 @@ class SlotState:
     prefill_remaining: int = 0     # uncached prompt tokens not yet consumed
     cached_tokens: int = 0         # prompt tokens served from the cache
     pending_prefill: bool = False  # device prefill not yet executed
-    tokens: Optional[torch.Tensor] = None  # [1, bucket] prompt ids
+    # "tokens" [1, bucket] prompt ids (+ "frames" for an encoder-decoder)
+    batch: Optional[Dict[str, torch.Tensor]] = None
     bucket: int = 0
     prefill_pos: int = 0           # bucket position device prefill reached
 
@@ -335,7 +339,11 @@ class ServingEngine:
         st.cached_tokens = cached
         st.prefill_remaining = prompt_len - cached
         st.pending_prefill = True
-        st.tokens = torch.from_numpy(tokens).to(self.device)
+        st.batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
+        if self.cfg.family == "encdec":
+            st.batch["frames"] = torch.zeros(
+                (1, self.cfg.enc_seq, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
         st.bucket = bucket
         st.prefill_pos = cached
         self._join_order.append(slot)
@@ -355,7 +363,7 @@ class ServingEngine:
         last prompt chunk landed, so run the whole bucket at once, copy
         its cache into the slot and emit the first token."""
         st = self.slots[slot]
-        logits, cache_1 = self.api.prefill(self.cfg, self.params, st.tokens,
+        logits, cache_1 = self.api.prefill(self.cfg, self.params, st.batch,
                                            max_len=self.ecfg.max_len)
         tok = sample_logits(logits, self._gen, self.ecfg.temperature)
         self._insert_cache(slot, cache_1)
@@ -386,7 +394,7 @@ class ServingEngine:
             [slot], self.alloc.pages_per_seq)).to(self.device)
         q_offset = torch.tensor([start], dtype=torch.int32, device=self.device)
         logits = transformer.prefill_chunk_paged(
-            self.cfg, self.params, self._pool, st.tokens[:, start:end], pt,
+            self.cfg, self.params, self._pool, st.batch["tokens"][:, start:end], pt,
             q_offset)
         self.n_prefill_launches += 1
         self.prefill_chunk_log.append((slot, chunk_len))
@@ -405,7 +413,7 @@ class ServingEngine:
         st.generated = 1                       # prefill emitted one token
         st.last_token = tok
         st.pending_prefill = False
-        st.tokens = None
+        st.batch = None
         st.req.prefill_end = now               # first token exists now
         if self.trace.enabled:
             self.trace.emit(now, tr.FIRST_TOKEN, req_id=st.req.req_id,
@@ -431,7 +439,7 @@ class ServingEngine:
         st.prefill_remaining = 0
         st.cached_tokens = 0
         st.pending_prefill = False
-        st.tokens = None
+        st.batch = None
 
     def _slot_pages(self, slot: int) -> torch.Tensor:
         """The slot's page table as one int64 index tensor on the
@@ -499,7 +507,7 @@ class ServingEngine:
         st.cached_tokens = 0
         st.prefill_remaining = 0
         st.pending_prefill = False
-        st.tokens = None
+        st.batch = None
         st.bucket = payload["bucket"]
         st.prefill_pos = payload["seq_len"]
         self._join_order.append(slot)

@@ -27,6 +27,7 @@ COPIES = [
     "configs/smollm_135m.py", "configs/h2o_danube_1_8b.py",
     "configs/mamba2_2_7b.py", "configs/minitron_4b.py",
     "configs/minitron_8b.py", "configs/zamba2_1_2b.py",
+    "configs/whisper_large_v3.py",
     "distributed/fault_tolerance.py",
     "cluster/__init__.py", "cluster/replica.py", "cluster/admission.py",
     "cluster/router.py", "cluster/autoscaler.py", "cluster/metrics.py",

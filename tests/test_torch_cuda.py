@@ -163,6 +163,33 @@ def test_flash_kernel_tile_edges(cuda, B, Lq, Lk, H, Hk, D, kw, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+# More queries than keys (query i at Lk - Lq + i < 0 for the first
+# Lq - Lk): whisper's cross-attention of a decoder bucket against fewer
+# encoder frames, and causal rows that see no key (zeros).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("B,Lq,Lk,H,Hk,D,kw", [
+    (2, 32, 16, 4, 4, 64, dict(causal=False)),
+    (1, 40, 16, 4, 4, 64, dict()),
+    (1, 70, 64, 9, 3, 64, dict(window=16)),
+])
+def test_flash_kernel_more_queries_than_keys(cuda, B, Lq, Lk, H, Hk, D, kw,
+                                             softcap, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(B, Lq, H, D, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(B, Lk, Hk, D, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(B, Lk, Hk, D, generator=gen, device=cuda).to(dtype)
+    before = flash_attention.launches
+    got = ops.attention(q, k, v, impl="cuda", logit_softcap=softcap, **kw)
+    want = ops.attention(q, k, v, impl="reference", logit_softcap=softcap,
+                         **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if kw.get("causal", True):
+        assert not got[:, :Lq - Lk].any()
+
+
 # q_offset 128 (a prefix-cache hit), ragged row counts, kv_len ending
 # mid-page and, for the second sequence, before the chunk ends (its
 # later rows are zeros); the table past each kv_len is poisoned.
@@ -461,13 +488,15 @@ def test_pd_extract_and_inject_bit_exact_on_the_card(cuda):
 @pytest.mark.parametrize("arch,paged", [("minitron-8b", True),
                                         ("minitron-8b", False),
                                         ("mamba2-2.7b", False),
-                                        ("zamba2-1.2b", False)])
+                                        ("zamba2-1.2b", False),
+                                        ("whisper-large-v3", False)])
 def test_engine_serves_each_family_on_cuda(cuda, arch, paged):
     """Smoke-size engines on the card: every request completes, and each
     kernel of the path launches exactly as often as the path says (paged:
     batched decode and chunked prefill once per layer and iteration or
     chunk; slot-ring: flash attention once per attention layer and
-    prefill, none for Mamba-2), and no other kernel."""
+    prefill, none for Mamba-2; whisper's encoder, decoder and
+    cross-attention layers), and no other kernel."""
     cfg = smoke_config(arch)
     params = get_api(cfg).init(cfg, torch.Generator(device=cuda).manual_seed(0),
                                device=cuda)
@@ -493,6 +522,7 @@ def test_engine_serves_each_family_on_cuda(cuda, arch, paged):
                 cfg.n_layers * eng.n_prefill_launches, 0, 0, 0]
     else:
         per_prefill = {"dense": cfg.n_layers, "ssm": 0,
-                       "hybrid": -(-cfg.n_layers // max(cfg.attn_every, 1))}
+                       "hybrid": -(-cfg.n_layers // max(cfg.attn_every, 1)),
+                       "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}
         want = [0, 0, 0, per_prefill[cfg.family] * 5, 0]
     assert got == want

@@ -43,6 +43,7 @@ from repro.workload.generator import WorkloadGenerator as JaxGenerator
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import smoke_config
 from repro_torch.core.scheduler import DriftScheduler
+from repro_torch.models.registry import get_api
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.workload.generator import GeneratorConfig, WorkloadGenerator
 
@@ -246,13 +247,20 @@ def test_tokenize_full_vocab_legacy_layout():
 
 
 def test_engine_refuses_what_later_slices_port():
+    """vlm and MoE are later slices; encdec is served on the slot-ring
+    cache since its slice (its self and cross K/V in the ring)."""
     sched = DriftScheduler("fifo")
-    with pytest.raises(NotImplementedError, match=r"later slice.*A7"):
-        ServingEngine(CFG_T.replace(family="encdec"), PARAMS_T, sched,
-                      EngineConfig(paged=False), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"later slice.*A6"):
-        ServingEngine(CFG_T.replace(family="vlm"), PARAMS_T, sched,
-                      EngineConfig(paged=True), device="cpu")
+    wcfg = smoke_config("whisper-large-v3")
+    wparams = get_api(wcfg).init(wcfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    eng = ServingEngine(wcfg, wparams, sched, EngineConfig(paged=False),
+                        device="cpu")
+    assert eng.api is get_api(wcfg)
+    assert sorted(eng.cache) == ["cross_k", "cross_v", "k", "lens", "v"]
+    for family in ("vlm", "moe"):
+        with pytest.raises(NotImplementedError, match=r"later slice.*A6"):
+            ServingEngine(CFG_T.replace(family=family), PARAMS_T, sched,
+                          EngineConfig(paged=True), device="cpu")
 
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):
@@ -270,7 +278,7 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.launch.serve, repro_torch.bridge\n"
         "import repro_torch.kernels.ops, repro_torch.configs\n"
         "import repro_torch.launch.train, repro_torch.models.mamba2\n"
-        "import repro_torch.models.hybrid\n"
+        "import repro_torch.models.hybrid, repro_torch.models.encdec\n"
         "import repro_torch.distributed.optimizer, repro_torch.data.pipeline\n"
         "import repro_torch.distributed.checkpoint, repro_torch.models.steps\n"
         "import repro_torch.cluster, repro_torch.cluster.driver\n"

@@ -189,6 +189,10 @@ def _qkv(rng, B, Lq, Lk, H, Hk, D, dtype):
     (1, 1, 37, 3, 1, 16, dict()),                        # Lq 1 < Lk
     (2, 5, 37, 4, 1, 16, dict(window=16, prefix_len=8)), # Lq 5 < Lk
     (1, 19, 19, 3, 3, 24, dict(causal=False)),           # non-causal
+    # more queries than keys: a decoder bucket against whisper's frames
+    (2, 32, 16, 4, 4, 16, dict(causal=False)),           # cross-attention
+    (1, 40, 16, 4, 4, 16, dict()),                       # causal, empty rows
+    (1, 70, 64, 9, 3, 16, dict(window=16)),
 ])
 def test_attention_matches_pallas(B, Lq, Lk, H, Hk, D, kw, dtype):
     rng = np.random.default_rng(20)
@@ -221,9 +225,24 @@ def test_attention_plain_versions_agree(kw):
 
 
 def test_attention_refuses_more_queries_than_keys():
-    q = torch.zeros(1, 5, 2, 8)
+    """The wrapper takes more queries than keys (the decoder's
+    cross-attention over a shorter encoder), with JAX's semantics:
+    query ``i`` sits at ``Lk - Lq + i``, a causal row at a negative
+    position sees no key and is zeros. It refuses heads that do not
+    group."""
+    rng = np.random.default_rng(22)
+    for kw in (dict(), dict(causal=False), dict(window=4)):
+        (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, 2, 12, 5, 4, 2, 16,
+                                            "float32")
+        got = flash_attention.flash_attention(qt, kt, vt, **kw)
+        want = jax_flash(qj, kj, vj, block_q=16, block_kv=16, interpret=True,
+                         **{"causal": True, **kw})
+        _close(got, want, "float32")
+        if kw.get("causal", True):
+            assert not got[:, :7].any() and got[:, 7:].all()
+    q = torch.zeros(1, 5, 3, 8)
     k = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(ValueError, match="Lq must be <= Lk"):
+    with pytest.raises(ValueError, match="do not group"):
         flash_attention.flash_attention(q, k, k)
 
 

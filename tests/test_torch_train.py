@@ -50,7 +50,7 @@ from repro_torch.distributed import optimizer as topt
 from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.launch import train as launch_train
 from repro_torch.models import mamba2 as tm
-from repro_torch.models import hybrid, registry, steps
+from repro_torch.models import encdec, hybrid, registry, steps
 from repro_torch.models import transformer as ttr
 
 SSM, DENSE = "mamba2-2.7b", "smollm-135m"
@@ -267,19 +267,32 @@ def test_registry_families():
     cfg = smoke_config(SSM)
     api = registry.get_api(cfg)
     assert api.init is tm.init
-    assert (api.prefill, api.decode_step, api.init_cache) == (
-        tm.prefill, tm.decode_step, tm.init_cache)
-    assert registry.get_api(smoke_config(DENSE)).prefill is ttr.prefill
-    assert registry.get_api(smoke_config("zamba2-1.2b")).prefill is hybrid.prefill
-    for family, item in (("vlm", "A6"), ("moe", "A6"), ("encdec", "A7")):
+    assert (api.decode_step, api.init_cache) == (tm.decode_step,
+                                                 tm.init_cache)
+    _, _, _, pm = _params(SSM, "float32")
+    toks = torch.from_numpy(np.arange(1, 13, dtype=np.int64)[None])
+    for got, want in zip(api.prefill(cfg, pm, {"tokens": toks}),
+                         tm.prefill(cfg, pm, toks)):
+        for name in (want if isinstance(want, dict) else {"": want}):
+            g, w = (got[name], want[name]) if name else (got, want)
+            assert torch.equal(g, w), name
+    dense = smoke_config(DENSE)
+    assert registry.get_api(dense).init is ttr.init
+    assert registry.get_api(smoke_config("zamba2-1.2b")).init is hybrid.init
+    # encdec is a ported family (frames routed by the adapters); vlm and
+    # MoE are refused up front
+    assert registry.get_api(smoke_config("whisper-large-v3")).decode_step \
+        is encdec.decode_step
+    for family, item in (("vlm", "A6"), ("moe", "A6")):
         with pytest.raises(NotImplementedError, match=f"later slice.*{item}"):
             registry.get_api(cfg.replace(family=family))
-    dense = smoke_config(DENSE)
     _, _, _, pt = _params(DENSE, "float32")
+    patched = {"tokens": torch.zeros(1, 4, dtype=torch.long),
+               "patches": torch.zeros(1, 2, dense.d_model)}
     with pytest.raises(NotImplementedError, match="later slice"):
-        registry.get_api(dense).forward(
-            dense, pt, {"tokens": torch.zeros(1, 4, dtype=torch.long),
-                        "patches": torch.zeros(1, 2, dense.d_model)})
+        registry.get_api(dense).forward(dense, pt, patched)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        registry.get_api(dense).prefill(dense, pt, patched)
     assert SSM in ARCHS
 
 
