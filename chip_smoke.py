@@ -3,8 +3,10 @@ holds each against its plain PyTorch version, times them, serves
 full-width smollm-135m through the paged and the slot-ring engines and
 through a prefill/decode-disaggregated cluster of paged engines, serves
 full-width minitron-8b (both engines), mamba2-2.7b, zamba2-1.2b and
-whisper-large-v3 (slot-ring), and trains full-width mamba2-2.7b,
-smollm-135m and whisper-large-v3, on one GPU.
+whisper-large-v3 (slot-ring), paligemma-3b (both engines), grok-1-314b
+(both engines, depth cut to 4) and llama4-scout-17b-a16e (slot-ring,
+depth cut to 8), and trains full-width mamba2-2.7b, smollm-135m and
+whisper-large-v3, on one GPU.
 
     python3 chip_smoke.py
 
@@ -52,6 +54,16 @@ first that fails:
                  bit-identical;
                  gradients through the flash and SSD autograd Functions
                  at the trainers' shapes against plain autograd;
+                 and, on a generator of their own, the vlm and MoE
+                 shapes: flash attention at paligemma-3b's prefill (8 q
+                 over 1 kv head of 256, a 256-key prefix-LM prefix
+                 before 64, 256 and 37 tokens, and 4 x (256 + 128)) and
+                 at grok-1's and llama4-scout's 64-, 128- and 256-token
+                 buckets (groups 6 and 5, D 128);
+                 both decode kernels at groups 5 and 6 and at
+                 paligemma-3b's group 8, D 256, at their split edges;
+                 the chunk at groups 5 and 6, q_offset 0 and 128; the
+                 flash gradient at paligemma-3b's prefix shape;
 4. kernel_times  each kernel at its main path's full-width shapes: its
                  time per call (CUDA events, the host's issue time
                  included), the plain version's, a library call's where
@@ -68,7 +80,10 @@ first that fails:
                  at minitron-8b's heads (D 128, group 4), the bucket
                  at zamba2's shared block, and whisper-large-v3's
                  encoder (1,500 x 1,500) and cross-attention (128 x
-                 1,500) calls, non-causal, beside SDPA;
+                 1,500) calls, non-causal, beside SDPA; paligemma-3b's
+                 320-token prefill (256-token prefix, SDPA given the
+                 mask) and decode (D 256), and grok-1's decode call and
+                 chunk with softcap 30 (SDPA without the cap);
 5. engine        full-width smollm-135m, bf16, 24 requests through
                  DriftScheduler("sjf") and the paged engine, with the
                  kernels' launch counts checked against the iterations;
@@ -149,27 +164,59 @@ first that fails:
                  frames [4, 1500, 1280] (96 flash launches) and one
                  decode step, kernel path against plain path gated in
                  float32, the bf16 deviation printed;
-26. train        mamba2-2.7b at full width and depth (64 layers), bf16,
+26. engine_paligemma  full-width paligemma-3b (18 layers, d_model 2048,
+                 8 q over 1 kv head of 256, vocab 257,216; 2.51 B
+                 params), bf16, zero patches from the engine, the
+                 engine phase's 24 requests through the paged engine:
+                 flash launches exactly 18 x single-shot prefills (no
+                 chunk kernel: a vlm prefills single-shot, as in JAX),
+                 batched decode 18 x decode iterations;
+27. engine_paligemma_slot  the same requests through the slot-ring
+                 engine at max_len 640: flash 18 x prefills, no other;
+28. engine_paligemma_profile  the paged engine under torch.profiler;
+29. engine_paligemma_check  one prefill of 4 x (256 + 128) over random
+                 patches (flash kernel with the prefix-LM mask) and one
+                 paged decode step, kernel path against plain path gated
+                 in float32, the bf16 deviation printed;
+30. engine_grok  full-width grok-1-314b (d_model 6144, 48 q over 8 kv
+                 heads of 128, d_ff 32,768, 8 experts top-2, softcap
+                 30), depth cut from 64 to 4 layers (21.3 B params),
+                 through the paged engine: batched decode 4 x decode
+                 iterations, chunked prefill 4 x chunks, no other
+                 kernel; peak memory;
+31. engine_grok_slot  the same requests through the slot-ring engine:
+                 flash 4 x prefills, no other;
+32. engine_grok_profile  the paged engine under torch.profiler;
+33. engine_grok_check  the 4-layer model freed, one prefill chunk and one
+                 decode step at full width and 1 layer, gated in
+                 float32, with the kernel and plain paths' routing (each
+                 MoE call's top experts and kept entries) compared;
+34. engine_llama4  full-width llama4-scout-17b-a16e (d_model 5120, 40 q
+                 over 8 kv heads of 128, 16 experts top-1), depth cut
+                 from 48 to 8 layers (18.7 B params), through the
+                 slot-ring engine: flash 8 x prefills, no other; peak
+                 memory;
+35. train        mamba2-2.7b at full width and depth (64 layers), bf16,
                  through the training launcher's code: 6 AdamW steps on
                  batch 2 x 2048 synthetic tokens with per-layer remat;
                  SSD launches exactly 2 x 64 x 6 and no attention kernel;
-27. train_profile  one more step of it under torch.profiler, with the
+36. train_profile  one more step of it under torch.profiler, with the
                  device time launched inside the SSD kernel's forward,
                  the plain SSD backward and the AdamW update;
-28. train_check  one step's loss, grad norm and gradients of w_x,
+37. train_check  one step's loss, grad norm and gradients of w_x,
                  out_proj, A_log and the embedding at full width, depth
                  cut to 8 layers: the kernel path against the plain path,
                  within the plain path's own bf16-vs-float32 deviation;
                  beside it, ungated, the plain path at chunk 128 (the
                  same function, summed in another order) against itself;
-29. train_dense  smollm-135m at full width, batch 8 x 512, 4 steps;
+38. train_dense  smollm-135m at full width, batch 8 x 512, 4 steps;
                  flash-attention launches exactly 2 x 30 x 4;
-30. train_dense_check  one step of it at full depth (30 layers): loss,
+39. train_dense_check  one step of it at full depth (30 layers): loss,
                  grad norm and the gradients of wq, wk, wv and the
                  embedding, kernel path against plain path as train_check,
                  but gated in float32 (through 30 bf16 layers the two
                  bf16 paths decorrelate; their deviation is printed);
-31. train_whisper  whisper-large-v3 at full width and depth, batch 2 x
+40. train_whisper  whisper-large-v3 at full width and depth, batch 2 x
                  448 decoder tokens over the launcher's stub frames, 3
                  AdamW steps with remat: finite losses, flash launches
                  exactly 2 x 96 x 3.
@@ -183,7 +230,9 @@ The line before the last is the kernel table as JSON, the last line
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import itertools
 import json
 import math
 import re
@@ -380,6 +429,10 @@ def build_phase():
 def kernel_check_phase(dev):
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(0)
+    # the vlm and MoE models' cases draw on a generator of their own, so
+    # the earlier cases' inputs stay as they were; their worst errors go
+    # under keys of their own (moe_vlm_*)
+    gen_mv = torch.Generator(device=dev).manual_seed(20)
     n_cases, worst = 0, {}
     shapes_decode = [  # B, H, Hk, D, P, pps
         (3, 3, 1, 24, 8, 12),      # smoke smollm
@@ -447,13 +500,15 @@ def kernel_check_phase(dev):
                                  f"Hk{Hk} D{D} P{P} C{C} softcap={softcap} "
                                  f"poisoned={poisoned}: max abs err {err} > "
                                  f"tol {TOL[dtype]}")
-    # minitron-8b's chunk (group 4, D 128): 128 tokens at q_offset 0 and,
-    # after a prefix-cache hit, at 128
-    for dtype in (torch.float32, torch.bfloat16):
-        for q_offset in (0, 128):
-            for softcap in (None, 30.0):
+    # the D 128 models' chunk, 8 kv heads: minitron-8b's (group 4), then
+    # llama4-scout's and grok-1's (groups 5 and 6), 128 tokens at q_offset
+    # 0 and, after a prefix-cache hit, at 128
+    for g, heads, tag in ((gen, (32,), ""), (gen_mv, (40, 48), "moe_vlm_")):
+        for dtype in (torch.float32, torch.bfloat16):
+            for H, q_offset, softcap in itertools.product(heads, (0, 128),
+                                                          (None, 30.0)):
                 q, k, v, table, off, kv = prefill_inputs(
-                    gen, 1, 128, 32, 8, 128, 16, 32, [q_offset], dtype, dev)
+                    g, 1, 128, H, 8, 128, 16, 32, [q_offset], dtype, dev)
                 pt = poison(table, kv.tolist(), 16, k.shape[0])
                 got = ops.chunked_prefill_attention(
                     q, k, v, pt, off, kv, logit_softcap=softcap, impl="cuda")
@@ -462,13 +517,13 @@ def kernel_check_phase(dev):
                     impl="reference")
                 torch.cuda.synchronize()
                 err = max_err(got, want)
-                key = ("prefill", str(dtype).split(".")[-1])
+                key = (tag + "prefill", str(dtype).split(".")[-1])
                 worst[key] = max(worst.get(key, 0.0), err)
                 n_cases += 1
                 if not within(got, want, dtype):
-                    fail(f"prefill kernel vs plain at minitron-8b's chunk: "
-                         f"{dtype} q_offset {q_offset} softcap={softcap}: "
-                         f"max abs err {err} > tol {TOL[dtype]}")
+                    fail(f"prefill kernel vs plain at the D 128 chunk: "
+                         f"{dtype} H{H} q_offset {q_offset} softcap="
+                         f"{softcap}: max abs err {err} > tol {TOL[dtype]}")
     # the tile edges at q_offset 128 (a prefix-cache hit): ragged row
     # counts, kv_len mid-page and, for the second sequence, before the
     # chunk ends (its later rows must be zeros), poisoned table tails
@@ -519,7 +574,11 @@ def kernel_check_phase(dev):
                              f"H{H} Hk{Hk} D{D} P{P} softcap={softcap} "
                              f"poisoned={poisoned}: max abs err {err} > tol "
                              f"{TOL[dtype]} (or a seq_len-0 row not zero)")
-    n_cases += decode_split_checks(gen, dev, worst)
+    n_cases += decode_split_checks(
+        gen, dev, worst, split_scenes(SPLIT_GEOMETRIES) + [EMPTY_BATCH_SCENE])
+    n_cases += decode_split_checks(gen_mv, dev, worst,
+                                   split_scenes(MOE_VLM_SPLIT_GEOMETRIES),
+                                   tag="moe_vlm_")
     shapes_flash = [  # B, Lq, Lk, H, Hk, D, mask keywords
         (2, 40, 40, 3, 1, 24, {}),                        # smoke smollm
         (2, 40, 40, 4, 2, 16, dict(window=16)),           # smoke h2o-danube
@@ -558,26 +617,47 @@ def kernel_check_phase(dev):
         (1, 128, 1500, 20, 20, 64, dict(causal=False)),
         (1, 128, 128, 20, 20, 64, {}),
     ]
-    for dtype in (torch.float32, torch.bfloat16):
-        for B, Lq, Lk, H, Hk, D, kw in shapes_flash:
-            for softcap in (None, 30.0):
-                q, k, v = flash_inputs(gen, B, Lq, Lk, H, Hk, D, dtype, dev)
-                got = ops.attention(q, k, v, logit_softcap=softcap,
-                                    impl="cuda", **kw)
-                want = ops.attention(q, k, v, logit_softcap=softcap,
-                                     impl="reference", **kw)
-                torch.cuda.synchronize()
-                err = max_err(got, want)
-                key = ("flash", str(dtype).split(".")[-1])
-                worst[key] = max(worst.get(key, 0.0), err)
-                n_cases += 1
-                # causal rows before position 0 see no key: zeros
-                empty = max(Lq - Lk, 0) if kw.get("causal", True) else 0
-                if not within(got, want, dtype) or got[:, :empty].any():
-                    fail(f"flash kernel vs plain: {dtype} B{B} Lq{Lq} Lk{Lk} "
-                         f"H{H} Hk{Hk} D{D} {kw} softcap={softcap}: max abs "
-                         f"err {err} > tol {TOL[dtype]} (or one of the "
-                         f"{empty} rows with no visible key not zero)")
+    shapes_flash_mv = [
+        # paligemma-3b (8 q over 1 kv head of 256): its 256 patches as a
+        # prefix-LM prefix before 64, 256 and 37 tokens (the last puts the
+        # prefix edge inside a 64-key tile), and its check's 4 x (256 + 128)
+        (1, 320, 320, 8, 1, 256, dict(prefix_len=256)),
+        (1, 512, 512, 8, 1, 256, dict(prefix_len=256)),
+        (1, 293, 293, 8, 1, 256, dict(prefix_len=256)),
+        (4, 384, 384, 8, 1, 256, dict(prefix_len=256)),
+        # grok-1 (48 q over 8 kv heads of 128) and llama4-scout (40 over 8)
+        # at the 64-, 128- and 256-token buckets; their engine runs
+        # prefill the 128 bucket only
+        (1, 64, 64, 48, 8, 128, {}),
+        (1, 128, 128, 48, 8, 128, {}),
+        (1, 256, 256, 48, 8, 128, {}),
+        (1, 64, 64, 40, 8, 128, {}),
+        (1, 128, 128, 40, 8, 128, {}),
+        (1, 256, 256, 40, 8, 128, {}),
+    ]
+    for g, shapes, tag in ((gen, shapes_flash, ""),
+                           (gen_mv, shapes_flash_mv, "moe_vlm_")):
+        for dtype in (torch.float32, torch.bfloat16):
+            for B, Lq, Lk, H, Hk, D, kw in shapes:
+                for softcap in (None, 30.0):
+                    q, k, v = flash_inputs(g, B, Lq, Lk, H, Hk, D, dtype, dev)
+                    got = ops.attention(q, k, v, logit_softcap=softcap,
+                                        impl="cuda", **kw)
+                    want = ops.attention(q, k, v, logit_softcap=softcap,
+                                         impl="reference", **kw)
+                    torch.cuda.synchronize()
+                    err = max_err(got, want)
+                    key = (tag + "flash", str(dtype).split(".")[-1])
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    n_cases += 1
+                    # causal rows before position 0 see no key: zeros
+                    empty = max(Lq - Lk, 0) if kw.get("causal", True) else 0
+                    if not within(got, want, dtype) or got[:, :empty].any():
+                        fail(f"flash kernel vs plain: {dtype} B{B} Lq{Lq} "
+                             f"Lk{Lk} H{H} Hk{Hk} D{D} {kw} softcap="
+                             f"{softcap}: max abs err {err} > tol "
+                             f"{TOL[dtype]} (or one of the {empty} rows with "
+                             "no visible key not zero)")
     shapes_ssd = [  # B, L, H, G, P, N, chunk
         (1, 128, 4, 1, 16, 16, 32),       # the JAX test shapes
         (2, 256, 8, 2, 32, 64, 64),
@@ -616,15 +696,20 @@ def kernel_check_phase(dev):
             del x, a, b, c, got, again, want, pieces
     # the autograd Functions at the trainers' shapes, bf16: the backward
     # is the plain version's, recomputed from the same saved inputs, so
-    # the gradients through the kernel equal plain autograd's
+    # the gradients through the kernel equal plain autograd's; and B4 at
+    # paligemma-3b's prefix shape
     grad_cases = [
         ("flash", lambda *t, impl: ops.attention(*t, impl=impl),
-         flash_inputs(gen, 8, 512, 512, 9, 3, 64, torch.bfloat16, dev)),
+         flash_inputs(gen, 8, 512, 512, 9, 3, 64, torch.bfloat16, dev), gen),
         ("ssd", lambda *t, impl: ops.ssd(*t, chunk=256, impl=impl),
-         ssd_inputs(gen, 2, 2048, 80, 1, 64, 128, torch.bfloat16, dev)),
+         ssd_inputs(gen, 2, 2048, 80, 1, 64, 128, torch.bfloat16, dev), gen),
+        ("moe_vlm_flash",
+         lambda *t, impl: ops.attention(*t, prefix_len=256, impl=impl),
+         flash_inputs(gen_mv, 2, 320, 320, 8, 1, 256, torch.bfloat16, dev),
+         gen_mv),
     ]
-    for name, fn, inputs in grad_cases:
-        r = torch.randn(inputs[0].shape, generator=gen, device=dev).to(
+    for name, fn, inputs, g in grad_cases:
+        r = torch.randn(inputs[0].shape, generator=g, device=dev).to(
             torch.bfloat16)
         grads = {}
         for impl in ("cuda", "reference"):
@@ -658,23 +743,42 @@ def split_lens(B, P, pps, per, longest):
     return [min(n, P * pps - 1) for n in picks[:B]]
 
 
-def decode_split_checks(gen, dev, worst):
-    """Both decode kernels where their page splits matter: long tables
-    (up to 2,047 tokens) with lengths on, just past and just before a
-    split edge and mid-split, the 32-q-head layout, and a batch whose
-    slots but one are empty; float32 and bf16, softcap on and off,
-    poisoned table tails. Each output against the plain version and
-    against ``ref.paged_decode_split_ref`` at the same plan, and two
-    calls bit-identical. Returns the number of cases."""
-    from repro_torch.kernels import ops, paged_attention, ref
-    scenes = []                      # (B, H, Hk, D, P, pps, lens)
-    for B, H, Hk, D, P, pps, longest in ((8, 9, 3, 64, 16, 128, 2047),
-                                         (4, 32, 8, 128, 16, 64, 1023)):
+# (B, H, Hk, D, P, pps, longest) of the split-edge checks: smollm-135m's
+# heads at 2,047 tokens and minitron-8b's 32-q-head layout
+SPLIT_GEOMETRIES = ((8, 9, 3, 64, 16, 128, 2047),
+                    (4, 32, 8, 128, 16, 64, 1023))
+# llama4-scout's and grok-1's groups 5 and 6 (D 128; the dispatch runs
+# them on the group-8 instantiation with a part-used head chunk) and
+# paligemma-3b's group 8 at D 256 on its 32-page table
+MOE_VLM_SPLIT_GEOMETRIES = ((4, 40, 8, 128, 16, 64, 1023),
+                            (4, 48, 8, 128, 16, 64, 1023),
+                            (8, 8, 1, 256, 16, 32, 511))
+# (B, H, Hk, D, P, pps, lens): a batch whose slots but one are empty
+EMPTY_BATCH_SCENE = (8, 9, 3, 64, 16, 32, [0, 0, 0, 0, 0, 300, 0, 0])
+
+
+def split_scenes(geometries):
+    """(B, H, Hk, D, P, pps, lens) for each geometry: lengths on, just
+    past and just before a split edge of its plan, and mid-split."""
+    from repro_torch.kernels import paged_attention
+    scenes = []
+    for B, H, Hk, D, P, pps, longest in geometries:
         mp = min(pps, 2 ** math.ceil(math.log2(-(-longest // P))))
         per, _ = paged_attention.split_plan(B, Hk, mp, P)
         scenes.append((B, H, Hk, D, P, pps, split_lens(B, P, pps, per,
                                                         longest)))
-    scenes.append((8, 9, 3, 64, 16, 32, [0, 0, 0, 0, 0, 300, 0, 0]))
+    return scenes
+
+
+def decode_split_checks(gen, dev, worst, scenes, tag=""):
+    """Both decode kernels where their page splits matter: ``scenes``
+    of (B, H, Hk, D, P, pps, lens), long tables (up to 2,047 tokens);
+    float32 and bf16, softcap on and off, poisoned table tails. Each
+    output against the plain version and against
+    ``ref.paged_decode_split_ref`` at the same plan, and two calls
+    bit-identical; worst errors under ``tag`` + the kernel's name.
+    Returns the number of cases."""
+    from repro_torch.kernels import ops, paged_attention, ref
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, Hk, D, P, pps, lens in scenes:
@@ -709,7 +813,7 @@ def decode_split_checks(gen, dev, worst):
                         got, again = call(), call()
                         torch.cuda.synchronize()
                         err = max(max_err(got, want), max_err(got, split))
-                        key = (name, str(dtype).split(".")[-1])
+                        key = (tag + name, str(dtype).split(".")[-1])
                         worst[key] = max(worst.get(key, 0.0), err)
                         n_cases += 1
                         empty = [b for b, n in enumerate(lens) if n == 0]
@@ -799,6 +903,9 @@ SMOLLM_HEADS = (9, 3, 64)
 MINITRON_8B_HEADS = (32, 8, 128)
 ZAMBA2_HEADS = (32, 32, 128)
 WHISPER_HEADS = (20, 20, 64)
+# paligemma-3b (group 8 at D 256) and grok-1-314b (group 6, softcap 30)
+PALIGEMMA_HEADS = (8, 1, 256)
+GROK_HEADS = (48, 8, 128)
 
 
 def decode_timing_scene(dev, heads=SMOLLM_HEADS):
@@ -976,20 +1083,29 @@ def kernel_times_phase(dev):
     rows = []
 
     # the engine's decode call is the table's row; 8 sequences of ~2,000
-    # tokens and minitron-8b's heads (D 128, group 4) are timed beside it
-    # (there the bound is microseconds)
+    # tokens, minitron-8b's heads (D 128, group 4), paligemma-3b's (D 256,
+    # group 8) and grok-1's (group 6) with its softcap 30 are timed beside
+    # it (there the bound is microseconds). SDPA has no softcap: on
+    # grok-1's row it is a yardstick without the cap.
     extra = []
-    for scene, path in (
-            (decode_timing_scene, "paged engine (decode)"),
-            (long_decode_timing_scene,
+    for scene, softcap, path in (
+            (decode_timing_scene, None, "paged engine (decode)"),
+            (long_decode_timing_scene, None,
              "long context (8 x 1,900-2,047 tokens)"),
             (functools.partial(decode_timing_scene, heads=MINITRON_8B_HEADS),
-             "paged engine (decode), minitron-8b")):
+             None, "paged engine (decode), minitron-8b"),
+            (functools.partial(decode_timing_scene, heads=PALIGEMMA_HEADS),
+             None, "pg decode: paged engine (decode), paligemma-3b"),
+            (functools.partial(decode_timing_scene, heads=GROK_HEADS),
+             30.0, "grok decode: paged engine (decode), grok-1-314b, "
+                   "softcap 30")):
         (q, k, v, table, lens, kn, vn), mp = scene(dev)
         args = (q, k, v, table, lens, kn, vn)
+        cap = dict(logit_softcap=softcap)
         got = ops.batched_paged_decode_attention(*args, max_pages=mp,
-                                                 impl="cuda")
-        want = ops.batched_paged_decode_attention(*args, impl="reference")
+                                                 impl="cuda", **cap)
+        want = ops.batched_paged_decode_attention(*args, impl="reference",
+                                                  **cap)
         err = max_err(got, want)
         if not within(got, want, torch.bfloat16):
             fail(f"decode kernel vs plain, {path}: max abs err {err}")
@@ -1000,25 +1116,33 @@ def kernel_times_phase(dev):
             name="batched_paged_decode_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/paged_decode.cu",
             replaces="src/repro/kernels/paged_attention.py:242",
-            max_abs_err=err, path=path,
+            max_abs_err=err, path=path, softcap=softcap,
             split_plan=paged_attention.split_plan(q.shape[0], Hk, mp, P),
             **timings(lambda: ops.batched_paged_decode_attention(
-                *args, max_pages=mp, impl="cuda"),
+                *args, max_pages=mp, impl="cuda", **cap),
                 lambda: ops.batched_paged_decode_attention(
-                    *args, impl="reference"),
+                    *args, impl="reference", **cap),
                 lambda: sdpa(sq, sk, sv, attn_mask=smask, enable_gqa=True),
                 flush),
             bytes=n_bytes, flops=flops))
 
     # the chunk at q_offset 0 is the table's row; the same chunk after a
-    # 128-token prefix-cache hit, and minitron-8b's chunk (D 128, group
-    # 4), are timed beside it
-    for q_offset, heads in ((0, SMOLLM_HEADS), (128, SMOLLM_HEADS),
-                            (0, MINITRON_8B_HEADS)):
+    # 128-token prefix-cache hit, minitron-8b's chunk (D 128, group 4)
+    # and grok-1's (group 6, softcap 30; SDPA without the cap) are timed
+    # beside it
+    for q_offset, heads, softcap, path in (
+            (0, SMOLLM_HEADS, None, "paged engine (prefill chunks)"),
+            (128, SMOLLM_HEADS, None,
+             "paged engine (prefill chunk after a prefix-cache hit)"),
+            (0, MINITRON_8B_HEADS, None,
+             "paged engine (prefill chunks), minitron-8b"),
+            (0, GROK_HEADS, 30.0, "grok chunk: paged engine (prefill "
+                                  "chunks), grok-1-314b, softcap 30")):
         q, k, v, table, off, kv = prefill_timing_scene(dev, q_offset, heads)
         args = (q, k, v, table, off, kv)
-        got = ops.chunked_prefill_attention(*args, impl="cuda")
-        want = ops.chunked_prefill_attention(*args, impl="reference")
+        cap = dict(logit_softcap=softcap)
+        got = ops.chunked_prefill_attention(*args, impl="cuda", **cap)
+        want = ops.chunked_prefill_attention(*args, impl="reference", **cap)
         err = max_err(got, want)
         if not within(got, want, torch.bfloat16):
             fail(f"prefill kernel vs plain at engine shapes, q_offset "
@@ -1031,13 +1155,11 @@ def kernel_times_phase(dev):
             source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
             replaces="src/repro/kernels/chunked_prefill.py:112",
             max_abs_err=err, q_offset=q_offset, kv_len=int(kv[0]),
-            path=("paged engine (prefill chunk after a prefix-cache hit)"
-                  if q_offset else "paged engine (prefill chunks)")
-            + ("" if heads == SMOLLM_HEADS else ", minitron-8b"),
+            path=path, softcap=softcap,
             **timings(lambda: ops.chunked_prefill_attention(
-                *args, impl="cuda"),
+                *args, impl="cuda", **cap),
                 lambda: ops.chunked_prefill_attention(
-                    *args, impl="reference"),
+                    *args, impl="reference", **cap),
                 lambda: sdpa(sq, sk, sv, attn_mask=smask, enable_gqa=True),
                 flush),
             bytes=n_bytes, flops=flops))
@@ -1070,39 +1192,47 @@ def kernel_times_phase(dev):
     # the slot-ring engine run prefills 64-token buckets only (its
     # prompts are all <= 64 tokens): that is the main path's shape and
     # the table's row; the largest bucket, 256, the dense trainer's
-    # batch 8 x 512, and minitron-8b's and zamba2-1.2b's 64-token buckets
-    # (D 128; zamba2's shared block with its window of 4096) are timed
-    # beside it
-    for B, L, heads, window, path in (
-            (1, 64, SMOLLM_HEADS, None, "slot-ring engine (prefill)"),
-            (1, 256, SMOLLM_HEADS, None, "slot-ring engine (prefill)"),
-            (8, 512, SMOLLM_HEADS, None, "trainer (dense forward)"),
-            (1, 64, MINITRON_8B_HEADS, None,
+    # batch 8 x 512, minitron-8b's and zamba2-1.2b's 64-token buckets
+    # (D 128; zamba2's shared block with its window of 4096), and
+    # paligemma-3b's 320-token prefill (its 256 patches as a prefix-LM
+    # prefix before a 64-token bucket; D 256, group 8) are timed beside it
+    for B, L, heads, mask, path in (
+            (1, 64, SMOLLM_HEADS, {}, "slot-ring engine (prefill)"),
+            (1, 256, SMOLLM_HEADS, {}, "slot-ring engine (prefill)"),
+            (8, 512, SMOLLM_HEADS, {}, "trainer (dense forward)"),
+            (1, 64, MINITRON_8B_HEADS, {},
              "slot-ring engine (prefill), minitron-8b"),
-            (1, 64, ZAMBA2_HEADS, 4096,
-             "slot-ring engine (prefill), zamba2-1.2b")):
+            (1, 64, ZAMBA2_HEADS, dict(window=4096),
+             "slot-ring engine (prefill), zamba2-1.2b"),
+            (1, 320, PALIGEMMA_HEADS, dict(prefix_len=256),
+             "pg prefill: slot-ring and paged prefill (paligemma-3b)")):
         q, k, v = flash_timing_scene(dev, B, L, heads)
-        got = ops.attention(q, k, v, window=window, impl="cuda")
-        want = ops.attention(q, k, v, window=window, impl="reference")
+        got = ops.attention(q, k, v, impl="cuda", **mask)
+        want = ops.attention(q, k, v, impl="reference", **mask)
         err = max_err(got, want)
         if not within(got, want, torch.bfloat16):
             fail(f"flash kernel vs plain at B {B} L {L} heads {heads}: max "
                  f"abs err {err}")
         sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        n_bytes, flops = flash_bound(q, k, window=window)
-        # SDPA's causal mask is the window's for L <= window
+        n_bytes, flops = flash_bound(q, k, **mask)
+        # SDPA's causal mask is the window's for L <= window; a prefix-LM
+        # mask goes to SDPA as a boolean attn_mask
+        prefix = mask.get("prefix_len", 0)
+        pos = torch.arange(L, device=dev)
+        sdpa_mask = (dict(attn_mask=(pos[None] <= pos[:, None])
+                          | (pos[None] < prefix))
+                     if prefix else dict(is_causal=True))
         (rows if (L, heads) == (64, SMOLLM_HEADS) else extra).append(dict(
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:124",
-            max_abs_err=err, batch=B, tokens=L, heads=heads, window=window,
-            path=path,
-            **timings(lambda: ops.attention(q, k, v, window=window,
-                                            impl="cuda"),
-                      lambda: ops.attention(q, k, v, window=window,
-                                            impl="reference"),
-                      lambda: sdpa(sq, sk, sv, is_causal=True,
-                                   enable_gqa=True), flush),
+            max_abs_err=err, batch=B, tokens=L, heads=heads,
+            window=mask.get("window"), prefix_len=prefix, path=path,
+            **timings(lambda: ops.attention(q, k, v, impl="cuda", **mask),
+                      lambda: ops.attention(q, k, v, impl="reference",
+                                            **mask),
+                      lambda: sdpa(sq, sk, sv, enable_gqa=True, **sdpa_mask),
+                      flush),
             bytes=n_bytes, flops=flops))
 
     # whisper-large-v3's two non-causal calls, beside the table's row:
@@ -1256,7 +1386,8 @@ def paged_engine_run(label, cfg, params, dev, **fields):
     """The paged engine (PAGED_ENGINE) on 24 requests (seed 0,
     ``max_tokens=64``, 64-token shared prefixes, sjf): every request
     completes, batched decode launched ``n_layers`` x decode iterations
-    and chunked prefill ``n_layers`` x chunks, no other kernel, a
+    and chunked prefill ``n_layers`` x chunks (a vlm: flash attention
+    ``n_layers`` x single-shot prefills, no chunk), no other kernel, a
     prefix-cache hit, and every page accounted for after the run."""
     eng, sched, reqs = serve(cfg, params, dev, PAGED_ENGINE, 24, 0,
                              shared_prefix_tokens=64)
@@ -1266,6 +1397,10 @@ def paged_engine_run(label, cfg, params, dev, **fields):
     chunk_lens = {}
     for _, n in eng.prefill_chunk_log:
         chunk_lens[n] = chunk_lens.get(n, 0) + 1
+    prefills = sum(r.prefill_end is not None for r in sched.completed)
+    vlm = cfg.family == "vlm"
+    if vlm:
+        fields["single_shot_prefills"] = prefills
     if label != "engine":
         fields["peak_memory_gb"] = peak_gb()
     phase(label, arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
@@ -1282,12 +1417,22 @@ def paged_engine_run(label, cfg, params, dev, **fields):
             cfg.n_layers * eng.n_decode_launches:
         fail(f"{label}: decode launches {launches} != {cfg.n_layers} x "
              f"{eng.n_decode_launches} decode iterations")
-    if eng.n_prefill_launches <= 0 or launches["chunked_prefill_attention"] \
-            != cfg.n_layers * eng.n_prefill_launches:
-        fail(f"{label}: prefill launches {launches} != {cfg.n_layers} x "
-             f"{eng.n_prefill_launches} prefill chunks")
-    if launches["paged_decode_attention"] or launches["flash_attention"] \
-            or launches["ssd_scan"]:
+    if vlm:
+        # prefix-LM prefill, single-shot through B4 (JAX's rule)
+        if prefills != len(reqs) or launches["flash_attention"] != \
+                cfg.n_layers * prefills:
+            fail(f"{label}: flash launches {launches} != {cfg.n_layers} x "
+                 f"{prefills} single-shot prefills")
+        other = ("paged_decode_attention", "chunked_prefill_attention",
+                 "ssd_scan")
+    else:
+        if eng.n_prefill_launches <= 0 or \
+                launches["chunked_prefill_attention"] != \
+                cfg.n_layers * eng.n_prefill_launches:
+            fail(f"{label}: prefill launches {launches} != {cfg.n_layers} x "
+                 f"{eng.n_prefill_launches} prefill chunks")
+        other = ("paged_decode_attention", "flash_attention", "ssd_scan")
+    if any(launches[k] for k in other):
         fail(f"{label}: the paged engine launched a kernel of another path: "
              f"{launches}")
     if eng.prefix_cache_stats()["hits"] <= 0:
@@ -1493,7 +1638,11 @@ def engine_check_phase(cfg, params, pool, pps, dev, label="engine_check",
     kernels against the same calls through the plain versions, each
     from a copy of ``pool`` (a PagedPool; ``pps`` pages per sequence)
     with random page tables. ``gate`` "float32" runs every path in
-    float32 as well and gates on that pair (``check_logits``)."""
+    float32 as well and gates on that pair (``check_logits``). For an
+    MoE model the routing of the kernel and the plain path (each
+    layer's top experts and kept entries) is compared too and the
+    entries that differ printed (``routing_differences``): a routing
+    flip moves logits far more than a kernel's rounding does."""
     from repro_torch.models import transformer
     gen = torch.Generator(device=dev).manual_seed(3)
     n_pages = pool.n_pages
@@ -1509,17 +1658,20 @@ def engine_check_phase(cfg, params, pool, pps, dev, label="engine_check",
     p32 = _cast(params, torch.float32)
     c32 = cfg.replace(dtype="float32")
 
+    routes = {}
+
     def run(impl, f32):
         p, c, dtype = (p32, c32, torch.float32) if f32 else (params, cfg, None)
         k, v = pool.k, pool.v
-        lp = transformer.prefill_chunk_paged(
-            c, p, {"k": k.to(dtype or k.dtype, copy=True),
-                   "v": v.to(dtype or v.dtype, copy=True)},
-            chunk, tables[:1], q_offset, impl=impl)
-        ld = transformer.decode_step_paged(
-            c, p, {"k": k.to(dtype or k.dtype, copy=True),
-                   "v": v.to(dtype or v.dtype, copy=True)},
-            step_tokens, step_tables, lens, max_pages=16, impl=impl)
+        with recorded_routes() as routes[impl, f32]:
+            lp = transformer.prefill_chunk_paged(
+                c, p, {"k": k.to(dtype or k.dtype, copy=True),
+                       "v": v.to(dtype or v.dtype, copy=True)},
+                chunk, tables[:1], q_offset, impl=impl)
+            ld = transformer.decode_step_paged(
+                c, p, {"k": k.to(dtype or k.dtype, copy=True),
+                       "v": v.to(dtype or v.dtype, copy=True)},
+                step_tokens, step_tables, lens, max_pages=16, impl=impl)
         return lp.float(), ld.float()
 
     reset_launches()
@@ -1534,7 +1686,40 @@ def engine_check_phase(cfg, params, pool, pps, dev, label="engine_check",
         fail(f"{label}: launches {launches}, want {want}")
     if gate == "float32":
         fields.update(launches=launches)
+    if cfg.family == "moe":
+        fields["routing_differences"] = {
+            name: routing_differences(routes["auto", f32],
+                                      routes["reference", f32])
+            for name, f32 in (("bfloat16", False), ("float32", True))
+            if ("auto", f32) in routes}
     check_logits(label, kern, plain, plain32, kern32=kern32, **fields)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """A list of each MoE layer's routing, (top experts [G, g, K], kept
+    entries [G, g, K]), as ``layers.moe_route`` computes it inside the
+    ``with`` block, in call order (empty for a model without MoE)."""
+    from repro_torch.models import layers
+    routes, route = [], layers.moe_route
+
+    def record(cfg, p, xg):
+        r = route(cfg, p, xg)
+        routes.append((r["top_e"], r["keep"]))
+        return r
+
+    with mock.patch.object(layers, "moe_route", record):
+        yield routes
+
+
+def routing_differences(a, b):
+    """Per MoE call (a prefill chunk's layers, then a decode step's) of
+    two runs: how many (token, k) entries picked another expert and how
+    many were kept in one run and dropped in the other, of how many."""
+    if len(a) != len(b):
+        fail(f"routing: {len(a)} MoE calls against {len(b)}")
+    return [{"top_e": int((ea != eb).sum()), "keep": int((ka != kb).sum()),
+             "entries": ea.numel()} for (ea, ka), (eb, kb) in zip(a, b)]
 
 
 def init_on_card(arch, dev, card, seed, n_layers=None):
@@ -1758,6 +1943,142 @@ def engine_whisper_phases(dev, card):
                  n_enc_layers=cfg.n_enc_layers, batch=4, tokens=128,
                  frames="0.02 N(0, 1), seed 19", launches=launches, card=card)
     del params, p32, frames
+    torch.cuda.empty_cache()
+
+
+# paligemma-3b on the slot-ring cache: SLOT_ENGINE's 8 slots and buckets,
+# max_len 640 >= 256 patches + the 256 bucket + 64 tokens + 2, so that
+# no ring fills up (ROADMAP C2: decode is capped at max_len - bucket - 2,
+# which does not count the prefix)
+PALIGEMMA_SLOT = dict(SLOT_ENGINE, max_len=640)
+# depths of the MoE runs at full width: a 4-layer grok-1 is 21.3 B
+# params (42.6 GB in bf16), an 8-layer llama4-scout 18.7 B (37.4 GB);
+# the grok check's one layer fits beside its float32 copy
+GROK_LAYERS, GROK_CHECK_LAYERS, LLAMA4_LAYERS = 4, 1, 8
+
+
+def engine_paligemma_phases(dev, card):
+    """Full-width paligemma-3b (18 layers, d_model 2048, 8 q over 1 kv
+    head of 256, vocab 257,216; 2.51 B params), bf16, zero patches from
+    the engine: the paged engine (B4 once per layer and single-shot
+    prefill, B1 once per layer and decode iteration, no B2), the
+    slot-ring engine at max_len 640 (B4 only), the paged engine's
+    profile, and the check."""
+    cfg, params, fields = init_on_card("paligemma-3b", dev, card, 20)
+    paged_engine_run("engine_paligemma", cfg, params, dev, **fields)
+    engine_slot_phase(cfg, params, dev, "engine_paligemma_slot",
+                      ecfg=PALIGEMMA_SLOT,
+                      gen_kw=dict(shared_prefix_tokens=64),
+                      max_len=PALIGEMMA_SLOT["max_len"], card=card)
+    engine_profile_phase(cfg, params, dev, "engine_paligemma_profile",
+                         PAGED_ENGINE, fields=dict(card=card),
+                         shared_prefix_tokens=64)
+    engine_paligemma_check_phase(cfg, params, dev, card)
+    del params
+    torch.cuda.empty_cache()
+
+
+def engine_paligemma_check_phase(cfg, params, dev, card):
+    """One prefill of 4 x (256 + 128): random patches (0.02 N(0, 1),
+    rounded to bf16 for every path) and 128 tokens, B4 with the
+    prefix-LM mask; and one paged decode step of 8 slots (one idle) from
+    a pool of random K/V, B1: the kernel path against the plain path,
+    gated in float32, the bf16 deviation printed."""
+    from repro_torch.models import transformer
+    from repro_torch.serving.kv_cache import PagedPool
+    gen = torch.Generator(device=dev).manual_seed(24)
+    tokens = torch.randint(1, cfg.vocab, (4, 128), generator=gen, device=dev)
+    patches = (0.02 * torch.randn(4, cfg.prefix_len, cfg.d_model,
+                                  generator=gen, device=dev)).to(torch.bfloat16)
+    P = PAGED_ENGINE["page_size"]
+    pps = -(-PAGED_ENGINE["max_len"] // P)
+    pool = PagedPool.create(cfg, 8 * pps + 1, P, device=dev)
+    for t in (pool.k, pool.v):          # K/V of unit scale, as the model's
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    tables = torch.randperm(8 * pps, generator=gen, device=dev).reshape(
+        8, pps).to(torch.int32)
+    tables[1] = pool.n_pages - 1                   # an idle slot
+    lens = torch.tensor([192, 0, 77, 130, 255, 16, 200, 98],
+                        dtype=torch.int32, device=dev)
+    step = torch.randint(1, cfg.vocab, (8,), generator=gen, device=dev)
+    p32, c32 = _cast(params, torch.float32), cfg.replace(dtype="float32")
+
+    def run(p, c, impl):
+        dtype = torch.float32 if c is c32 else pool.k.dtype
+        lp, _ = transformer.prefill(c, p, tokens, patches=patches,
+                                    max_len=PALIGEMMA_SLOT["max_len"],
+                                    impl=impl)
+        ld = transformer.decode_step_paged(
+            c, p, {"k": pool.k.to(dtype, copy=True),
+                   "v": pool.v.to(dtype, copy=True)},
+            step, tables, lens, max_pages=16, impl=impl)
+        return lp.float(), ld.float()
+
+    reset_launches()
+    kern = run(params, cfg, "auto")
+    launches = read_launches()
+    plain, plain32 = run(params, cfg, "reference"), run(p32, c32, "reference")
+    kern32 = run(p32, c32, "auto")
+    torch.cuda.synchronize()
+    want = {"flash_attention": cfg.n_layers,
+            "batched_paged_decode_attention": cfg.n_layers}
+    if {k: n for k, n in launches.items() if n} != want:
+        fail(f"engine_paligemma_check: launches {launches}, want {want}")
+    check_logits("engine_paligemma_check", kern, plain, plain32,
+                 kern32=kern32, arch=cfg.name, n_layers=cfg.n_layers,
+                 batch=4, tokens=128, prefix_len=cfg.prefix_len,
+                 patches="0.02 N(0, 1) in bf16, seed 24",
+                 pool_contents="random N(0, 1) K/V, seed 24",
+                 launches=launches, card=card)
+    del p32, pool
+
+
+def engine_grok_phases(dev, card):
+    """Full-width grok-1-314b (d_model 6144, 48 q over 8 kv heads of 128,
+    d_ff 32,768, 8 experts top-2, softcap 30), depth cut from 64 to 4
+    layers (21.3 B params, 42.6 GB in bf16): the paged engine (B2 once
+    per layer and chunk, B1 once per layer and decode iteration), the
+    slot-ring engine (B4 once per layer and prefill), the paged engine's
+    profile; then, the 4-layer model freed, one prefill chunk and decode
+    step at full width and one layer, gated in float32, with the kernel
+    and plain paths' routing compared."""
+    from repro_torch.serving.kv_cache import PagedPool
+    cfg, params, fields = init_on_card("grok-1-314b", dev, card, 21,
+                                       n_layers=GROK_LAYERS)
+    paged_engine_run("engine_grok", cfg, params, dev, **fields)
+    engine_slot_phase(cfg, params, dev, "engine_grok_slot",
+                      gen_kw=dict(shared_prefix_tokens=64), card=card)
+    engine_profile_phase(cfg, params, dev, "engine_grok_profile",
+                         PAGED_ENGINE, fields=dict(card=card),
+                         shared_prefix_tokens=64)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg, params, fields = init_on_card("grok-1-314b", dev, card, 22,
+                                       n_layers=GROK_CHECK_LAYERS)
+    pps = -(-PAGED_ENGINE["max_len"] // PAGED_ENGINE["page_size"])
+    pool = PagedPool.create(cfg, 8 * pps + PAGED_ENGINE["prefix_cache_pages"]
+                            + 1, PAGED_ENGINE["page_size"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for t in (pool.k, pool.v):          # K/V of unit scale, as the model's
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    engine_check_phase(cfg, params, pool, pps, dev, label="engine_grok_check",
+                       gate="float32", arch=cfg.name, n_layers=cfg.n_layers,
+                       **fields, pool_contents="random N(0, 1) K/V, seed 23")
+    del params, pool
+    torch.cuda.empty_cache()
+
+
+def engine_llama4_phases(dev, card):
+    """Full-width llama4-scout-17b-a16e (d_model 5120, 40 q over 8 kv
+    heads of 128, 16 experts top-1), depth cut from 48 to 8 layers (18.7
+    B params, 37.4 GB in bf16), on the slot-ring engine: B4 once per
+    layer and prefill, nothing else; launch counts and peak memory."""
+    cfg, params, fields = init_on_card("llama4-scout-17b-a16e", dev, card, 25,
+                                       n_layers=LLAMA4_LAYERS)
+    engine_slot_phase(cfg, params, dev, "engine_llama4",
+                      gen_kw=dict(shared_prefix_tokens=64), **fields)
+    del params
     torch.cuda.empty_cache()
 
 
@@ -2259,6 +2580,9 @@ def main() -> int:
     engine_mamba2_check_phase(dev, card)
     engine_zamba2_phases(dev, card)
     engine_whisper_phases(dev, card)
+    engine_paligemma_phases(dev, card)
+    engine_grok_phases(dev, card)
+    engine_llama4_phases(dev, card)
 
     train_cfg, setup = train_phase(dev)
     train_launches = read_launches()

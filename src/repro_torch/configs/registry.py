@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launchers. Lists the archs whose family the port runs, trained and
-served: the dense ones, whisper-large-v3 (encdec), mamba2-2.7b (ssm)
-and zamba2-1.2b (hybrid). The rest of the JAX package's catalog joins
-as their model families are ported (ROADMAP.md: vlm and MoE, A6)."""
+launchers. Lists the JAX package's whole catalog, every family trained
+and served by the port: the dense archs, grok-1-314b and
+llama4-scout-17b-a16e (moe), paligemma-3b (vlm), whisper-large-v3
+(encdec), mamba2-2.7b (ssm) and zamba2-1.2b (hybrid)."""
 
 from __future__ import annotations
 
@@ -20,6 +20,9 @@ _MODULES: Dict[str, str] = {
     "whisper-large-v3": "whisper_large_v3",
     "mamba2-2.7b": "mamba2_2_7b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "grok-1-314b": "grok_1_314b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "paligemma-3b": "paligemma_3b",
 }
 
 ARCHS: List[str] = list(_MODULES)

@@ -11,10 +11,11 @@ the discrete-event simulator.
 here at the arch's full width on ``cuda`` (random weights from
 ``--seed``, drawn on the run's device), with the same scheduler state
 machine. ``--paged off`` (the default) is that launcher's engine, the
-slot-ring cache, which serves every ``--arch`` (dense,
-``whisper-large-v3``, ``mamba2-2.7b``, ``zamba2-1.2b``); ``--paged on``
-serves a dense arch from the paged KV pool (the engine refuses the
-others with a ``ValueError``).
+slot-ring cache, which serves every ``--arch``; ``--paged on`` serves a
+transformer arch (dense, MoE and vlm) from the paged KV pool (the
+engine refuses ``whisper-large-v3``, ``mamba2-2.7b`` and
+``zamba2-1.2b`` with a ``ValueError``). grok-1-314b (633 GB in bf16)
+and llama4-scout-17b-a16e (203 GB) do not fit one H100 at full depth.
 ``--device cpu`` runs on the CPU with the kernels' plain versions.
 
 ``--engine sim`` runs the discrete-event simulator with the

@@ -10,9 +10,11 @@ the run's device; per-layer remat on. ``--preset smoke`` runs the
 arch's reduced config, ``full`` its published widths. Checkpoint /
 restart with ``--checkpoint-dir`` and ``--resume``. The JAX launcher's
 ``--compile-only`` (a TPU-mesh dry run) comes with ROADMAP.md A9. As
-there, each step's batch carries the stub frontend inputs of the
-encoder-decoder (``frames``) from one ``numpy.random.default_rng(0)``
-drawn once a step (``data.pipeline.attach_modality_stubs``).
+there, each step's batch carries the stub frontend inputs of the vlm
+(``patches``) and the encoder-decoder (``frames``) from one
+``numpy.random.default_rng(0)`` drawn once a step
+(``data.pipeline.attach_modality_stubs``); an MoE arch's loss adds
+``router_aux_coef`` x its router aux loss.
 """
 
 from __future__ import annotations

@@ -1,15 +1,18 @@
 """Dense model building blocks of the port (plain functions on tensors,
 params as dicts).
 
-The subset of the JAX package's ``models/layers.py`` that the dense
-serving paths (paged and slot-ring, with the int8 KV cache's
-quantisation), the SSM, hybrid and encoder-decoder models and the
-training forwards run, with its conventions and layouts kept:
+The JAX package's ``models/layers.py`` as the port's models run it:
+both transformer serving paths (paged and slot-ring, with the int8 KV
+cache's quantisation), the MoE layer, the SSM, hybrid and
+encoder-decoder models and the training forwards, with its conventions
+and layouts kept:
 
 * attention weights are head-split: wq [d, H, hd], wk/wv [d, Hk, hd],
-  wo [H, hd, d]; MLP w1/w3 [d, ff], w2 [ff, d]; embedding table [V, d];
-* activations flow in ``cfg.dtype``; norms, rope and sinusoidal
-  positions compute in float32.
+  wo [H, hd, d]; MLP w1/w3 [d, ff], w2 [ff, d]; MoE experts w1/w3
+  [E, d, ff], w2 [E, ff, d] and a float32 router [d, E]; embedding
+  table [V, d];
+* activations flow in ``cfg.dtype``; norms, rope, sinusoidal positions
+  and the router compute in float32.
 """
 
 from __future__ import annotations
@@ -50,11 +53,12 @@ def unstack_layers(layers: Dict) -> List[Dict]:
     return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
-def run_layers(body, x: torch.Tensor, layers: "Dict | List[Dict]", *,
-               remat: bool) -> torch.Tensor:
+def run_layers(body, x, layers: "Dict | List[Dict]", *, remat: bool):
     """``x = body(lp, x)`` for each layer's params ``lp`` of the stacked
     tree ``layers`` (the JAX ``lax.scan`` over layers), or of a list of
-    per-layer trees from :func:`unstack_layers`. With ``remat`` each
+    per-layer trees from :func:`unstack_layers`; ``x`` is a tensor or a
+    tuple of tensors (the MoE forward carries its aux loss). With
+    ``remat`` each
     layer's activations are recomputed in the backward
     (``torch.utils.checkpoint``, as ``jax.checkpoint`` with
     ``nothing_saveable``), so its kernels run twice per step."""
@@ -104,7 +108,7 @@ def dense_init(gen: torch.Generator, shape, fan_in: Optional[int] = None,
                device: "str | torch.device" = "cuda") -> torch.Tensor:
     fan_in = fan_in if fan_in is not None else shape[0]
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device) * fan_in ** -0.5
+                    device=gen.device).mul_(fan_in ** -0.5)   # one temporary
     return x.to(device=device, dtype=dtype)
 
 
@@ -112,7 +116,7 @@ def embed_init(gen: torch.Generator, shape,
                dtype: torch.dtype = torch.bfloat16,
                device: "str | torch.device" = "cuda") -> torch.Tensor:
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device) * 0.02
+                    device=gen.device).mul_(0.02)
     return x.to(device=device, dtype=dtype)
 
 
@@ -240,16 +244,18 @@ def qkv_project(p: Dict, x: torch.Tensor
 def attention_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None,
+                    prefix_len: int = 0,
                     kv_override: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
                     impl: str = "auto") -> torch.Tensor:
     """Full-sequence attention (training, prefill), x [B, L, width]:
     project, rope at ``0..L-1``, one flash-attention call (``causal``,
-    within ``window``), merge the heads. Returns [B, L, width]. With
-    ``kv_override`` (cross-attention: K/V ``[B, Lk, Hk, hd]`` from
-    :func:`cross_kv`) only q is projected, without rope, and attention
-    is not causal. (The JAX layer's ``positions`` and ``prefix_len``
-    come with the vlm family.)"""
+    within ``window``, the first ``prefix_len`` keys visible to every
+    query when causal: prefix-LM), merge the heads. Returns [B, L,
+    width]. With ``kv_override`` (cross-attention: K/V ``[B, Lk, Hk,
+    hd]`` from :func:`cross_kv`) only q is projected, without rope, and
+    attention is not causal. (The JAX layer's ``positions`` argument is
+    never passed by a model: rope runs at ``0..L-1``.)"""
     B, L, _ = x.shape
     if kv_override is None:
         q, k, v = qkv_project(p, x)
@@ -262,7 +268,8 @@ def attention_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
         k, v = kv_override
         causal = False
     out = ops.attention(q, k, v, causal=causal, window=window,
-                        logit_softcap=cfg.logit_softcap, impl=impl)
+                        logit_softcap=cfg.logit_softcap, impl=impl,
+                        prefix_len=prefix_len if causal else 0)
     return merge_heads(out, p["wo"])
 
 
@@ -363,6 +370,109 @@ def mlp_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts (grouped capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen, cfg: ModelConfig, device) -> Dict:
+    """One MoE layer: a float32 router [d, E] and the experts' stacked
+    MLP weights (``fan_in`` d for w1/w3, ff for w2), as the JAX
+    ``init_moe`` lays them out."""
+    E, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    kw = dict(dtype=dt(cfg), device=device)
+    p = {"router": dense_init(gen, (d, E), dtype=torch.float32,
+                              device=device),
+         "w1": dense_init(gen, (E, d, ff), fan_in=d, **kw),
+         "w2": dense_init(gen, (E, ff, d), fan_in=ff, **kw)}
+    if cfg.act in ("swiglu", "geglu"):
+        p["w3"] = dense_init(gen, (E, d, ff), fan_in=d, **kw)
+    return p
+
+
+def moe_route(cfg: ModelConfig, p: Dict, xg: torch.Tensor) -> Dict:
+    """The router of one MoE layer over token groups xg [G, g, d], as
+    the JAX ``moe_block`` computes it: float32 logits and softmax; the
+    top ``K`` experts of each token (ties to the lower index, as
+    ``jax.lax.top_k``: a stable descending sort), their probabilities
+    renormalised over the ``K``; each (token, k)'s place in its expert
+    from the exclusive cumsum of the one-hots flattened token-major over
+    the group; the entries at or past the capacity
+    ``max(ceil(g K / E * cf), 4)`` dropped. Returns ``probs`` [G, g, E],
+    ``top_e`` and ``top_p`` [G, g, K], the one-hots ``onehot`` [G, g, K,
+    E], the place ``pos_sel`` and the kept mask ``keep`` [G, g, K]
+    (float32 0/1), and ``capacity``."""
+    G, g, _ = xg.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    probs = torch.softmax(xg.float() @ p["router"], dim=-1)     # [G, g, E]
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :K], top_e[..., :K]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    capacity = max(int(math.ceil(g * K / E * cfg.moe_capacity_factor)), 4)
+    onehot = F.one_hot(top_e, E).float()                         # [G, g, K, E]
+    flat = onehot.reshape(G, g * K, E)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(G, g, K, E)
+    pos_sel = (pos * onehot).sum(-1)                             # [G, g, K]
+    keep = (onehot * (pos < capacity)).sum(-1)                   # [G, g, K]
+    return dict(probs=probs, top_e=top_e, top_p=top_p, onehot=onehot,
+                pos_sel=pos_sel, keep=keep, capacity=capacity)
+
+
+def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed experts with capacity-bounded grouped dispatch, x
+    [B, L, d]: the tokens (padded with zero rows to whole groups of
+    ``min(moe_group_size, B L)``) routed by :func:`moe_route`, gathered
+    per expert through the dispatch tensor [G, g, E, C] in
+    ``cfg.dtype``, the expert MLPs as batched products over the expert
+    axis on [E, G C, d] (the stacked weights used in place), and the
+    outputs weighted back by the combine tensor. Returns (out [B, L, d],
+    the Switch load-balance aux loss in float32, whose densities and
+    mean probabilities include the pad rows, as in JAX)."""
+    B, L, d = x.shape
+    E = cfg.n_experts
+    T = B * L
+    g = min(cfg.moe_group_size, T)
+    G = -(-T // g)
+    xt = x.reshape(T, d)
+    if G * g > T:
+        xt = F.pad(xt, (0, 0, 0, G * g - T))
+    xg = xt.reshape(G, g, d)
+    r = moe_route(cfg, p, xg)
+    C = r["capacity"]
+    # a dropped entry's place is >= C: its one-hot row over C is zero
+    # (jax.nn.one_hot's), masked here by keep instead of F.one_hot
+    cap_oh = F.one_hot(r["pos_sel"].long().clamp(max=C - 1), C).float()
+    cap_oh = cap_oh * r["keep"][..., None]                       # [G, g, K, C]
+    disp = torch.einsum("gtke,gtkc->gtec", r["onehot"], cap_oh)
+    comb = torch.einsum("gtke,gtkc->gtec", r["onehot"],
+                        cap_oh * r["top_p"][..., None])
+    xe = torch.einsum("gtec,gtd->egcd", disp.to(dt(cfg)), xg)    # [E, G, C, d]
+    xe = xe.reshape(E, G * C, d)
+    h = torch.bmm(xe, p["w1"])                                   # [E, G C, ff]
+    if cfg.act == "swiglu":
+        h = F.silu(h) * torch.bmm(xe, p["w3"])
+    elif cfg.act == "geglu":
+        h = F.gelu(h, approximate="tanh") * torch.bmm(xe, p["w3"])
+    else:
+        h = F.gelu(h, approximate="tanh")
+    ye = torch.bmm(h, p["w2"]).reshape(E, G, C, d)
+    out = torch.einsum("gtec,egcd->gtd", comb.to(dt(cfg)), ye)
+    out = out.reshape(G * g, d)[:T].reshape(B, L, d)
+    density = r["onehot"].sum(2).mean(dim=1)                     # [G, E]
+    router_prob = r["probs"].mean(dim=1)                         # [G, E]
+    aux = (density * router_prob).sum(-1).mean() * E
+    return out, aux.float()
+
+
+def moe_block_decode(cfg: ModelConfig, p: Dict,
+                     x: torch.Tensor) -> torch.Tensor:
+    """Decode-path MoE for single tokens x [B, d]: one group of all B
+    rows (the idle slots' rows too) at capacity factor 2.0."""
+    out, _ = moe_block(cfg.replace(moe_group_size=x.shape[0],
+                                   moe_capacity_factor=2.0), p, x[:, None, :])
+    return out[:, 0, :]
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Family dispatch: the model API the trainer and the serving engine
 call.
 
-Port of the JAX package's ``models/registry.py`` for the families the
-port runs so far, each trained and served: the dense transformer (both
-engine caches), the encoder-decoder (whisper), the SSM family (Mamba-2)
-and the hybrid (zamba2), the last three on the slot-ring cache:
+Port of the JAX package's ``models/registry.py``, for all six of its
+families, each trained and served: the transformer's dense, moe and vlm
+families (both engine caches), the encoder-decoder (whisper), the SSM
+family (Mamba-2) and the hybrid (zamba2), the last three on the
+slot-ring cache:
 
     api = get_api(cfg)
     params = api.init(cfg, gen, device=...)
@@ -15,9 +16,8 @@ and the hybrid (zamba2), the last three on the slot-ring cache:
 
 ``forward`` and ``prefill`` take a ``batch`` dict, as in JAX: the
 tokens, and the modality inputs that the adapters route to the family's
-keyword (encdec ``frames``; vlm ``patches`` with a later slice).
-:func:`get_api` refuses the families the port does not run yet, up
-front: vlm and MoE (ROADMAP.md, A6).
+keyword (vlm ``patches``, encdec ``frames``). An unknown family raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -27,9 +27,6 @@ from typing import Callable, Dict
 
 from . import encdec, hybrid, mamba2, transformer
 from .config import ModelConfig
-
-# the families later slices port -> their ROADMAP.md item
-_LATER = {"vlm": "A6", "moe": "A6"}
 
 
 @dataclass(frozen=True)
@@ -41,26 +38,15 @@ class ModelApi:
     init_cache: Callable[..., Dict]
 
 
-def _later(family: str) -> NotImplementedError:
-    item = _LATER.get(family, "queue A")
-    return NotImplementedError(
-        f"the port does not run the {family!r} family yet; it is a later "
-        f"slice (ROADMAP.md, {item})")
-
-
-def _tokens_only(batch: Dict):
-    if batch.get("patches") is not None:
-        raise _later("vlm")
-    return batch["tokens"]
-
-
 def _tf_forward(cfg, params, batch, *, remat=False, impl="auto"):
-    return transformer.forward(cfg, params, _tokens_only(batch), remat=remat,
+    return transformer.forward(cfg, params, batch["tokens"],
+                               patches=batch.get("patches"), remat=remat,
                                impl=impl)
 
 
 def _tf_prefill(cfg, params, batch, *, max_len=None, impl="auto"):
-    return transformer.prefill(cfg, params, _tokens_only(batch),
+    return transformer.prefill(cfg, params, batch["tokens"],
+                               patches=batch.get("patches"),
                                max_len=max_len, impl=impl)
 
 
@@ -94,9 +80,13 @@ def _encdec_prefill(cfg, params, batch, *, max_len=None, impl="auto"):
                           frames=batch["frames"], max_len=max_len, impl=impl)
 
 
+_TRANSFORMER = ModelApi(transformer.init, _tf_forward, _tf_prefill,
+                        transformer.decode_step, transformer.init_cache)
+
 _FAMILY_API: Dict[str, ModelApi] = {
-    "dense": ModelApi(transformer.init, _tf_forward, _tf_prefill,
-                      transformer.decode_step, transformer.init_cache),
+    "dense": _TRANSFORMER,
+    "moe": _TRANSFORMER,
+    "vlm": _TRANSFORMER,
     "ssm": ModelApi(mamba2.init, _mamba_forward, _mamba_prefill,
                     mamba2.decode_step, mamba2.init_cache),
     "hybrid": ModelApi(hybrid.init, _hybrid_forward, _hybrid_prefill,
@@ -110,4 +100,4 @@ def get_api(cfg: ModelConfig) -> ModelApi:
     try:
         return _FAMILY_API[cfg.family]
     except KeyError:
-        raise _later(cfg.family) from None
+        raise ValueError(f"unknown model family {cfg.family!r}") from None

@@ -1,16 +1,21 @@
-"""Dense decoder-only transformer: init, the training forward and both
-serving paths.
+"""Decoder-only transformer of the dense, moe and vlm families: init,
+the training forward and both serving paths.
 
-Port of the JAX package's ``models/transformer.py`` for the dense
-family: :func:`init`; the full-sequence :func:`forward` the trainer
-runs (one flash-attention call per layer); the slot-ring path
-(:func:`cache_size`, :func:`init_cache`, :func:`prefill`,
-:func:`decode_step`, with the sliding-window ring and the int8 KV
-cache); and the paged path (:func:`decode_step_paged`,
-:func:`prefill_chunk_paged`). Per-layer params stay stacked on a leading
-``L`` axis (the JAX layout, so the tests compare like with like); the
-layer ``lax.scan`` becomes a Python loop over that axis. The vlm prefix
-and MoE layers come with a later slice (ROADMAP.md, A6).
+Port of the JAX package's ``models/transformer.py``: :func:`init`; the
+full-sequence :func:`forward` the trainer runs (one flash-attention
+call per layer); the slot-ring path (:func:`cache_size`,
+:func:`init_cache`, :func:`prefill`, :func:`decode_step`, with the
+sliding-window ring and the int8 KV cache); and the paged path
+(:func:`decode_step_paged`, :func:`prefill_chunk_paged`, and
+:func:`prefill_kv`, the vlm's single-shot prefill into pages). Per-layer
+params stay stacked on a leading ``L`` axis (the JAX layout, so the
+tests compare like with like); the layer ``lax.scan`` becomes a Python
+loop over that axis. An MoE layer's MLP is ``layers.moe_block`` (its
+aux loss summed over layers by :func:`forward`; the decode paths route
+one group of the whole batch, ``layers.moe_block_decode``). A vlm
+(paligemma) puts the stub patch embeddings ``patches`` [B, prefix_len,
+d] before the token embeddings and attends them with prefix-LM masking
+(``cfg.prefix_len``).
 
 The caches are updated in place: the contiguous cache
 ``{"k": [L, B, S, Hk, hd], "v": ..., "lens": [B]}`` (plus ``k_scale`` /
@@ -34,26 +39,36 @@ from . import layers as nn
 from .config import ModelConfig
 
 
+_FAMILIES = ("dense", "moe", "vlm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the port's transformer runs the dense family only; "
-            f"{cfg.family!r} is a later slice (ROADMAP.md, A6)")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"the transformer runs the {_FAMILIES} families, "
+                         f"not {cfg.family!r}")
 
 
 def init(cfg: ModelConfig, gen: torch.Generator,
          device: "str | torch.device" = "cuda") -> Dict:
     """Random params from ``gen`` (std ``fan_in**-0.5`` projections,
-    0.02 embeddings, zero norm scales), in ``cfg.dtype`` on ``device``,
-    layer by layer into the stacked leaves (``layers.init_stacked``)."""
+    0.02 embeddings, zero norm scales), in ``cfg.dtype`` on ``device``
+    (an MoE router in float32), layer by layer into the stacked leaves
+    (``layers.init_stacked``: one layer's float32 draw at a time)."""
     _check_family(cfg)
     device = nn.resolve_device(device)
     d = cfg.d_model
-    stacked = nn.init_stacked(cfg.n_layers, lambda: {
-        "ln1": nn.init_norm(cfg, device),
-        "attn": nn.init_attention(gen, cfg, device),
-        "ln2": nn.init_norm(cfg, device),
-        "mlp": nn.init_mlp(gen, cfg, device)})
+
+    def draw_layer():
+        lp = {"ln1": nn.init_norm(cfg, device),
+              "attn": nn.init_attention(gen, cfg, device),
+              "ln2": nn.init_norm(cfg, device)}
+        if cfg.family == "moe":
+            lp["moe"] = nn.init_moe(gen, cfg, device)
+        else:
+            lp["mlp"] = nn.init_mlp(gen, cfg, device)
+        return lp
+
+    stacked = nn.init_stacked(cfg.n_layers, draw_layer)
     params = {
         "embed": {"table": nn.embed_init(gen, (cfg.vocab, d), nn.dt(cfg),
                                          device)},
@@ -80,29 +95,72 @@ def _head(cfg: ModelConfig, params: Dict) -> Dict:
 # training forward
 # ---------------------------------------------------------------------------
 
-def _layer_fwd(cfg: ModelConfig, lp: Dict, h: torch.Tensor, *,
-               impl: str) -> torch.Tensor:
-    """One decoder layer over the full sequence, h [B, L, d]."""
+def _mlp(cfg: ModelConfig, lp: Dict,
+         x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's MLP, or its MoE block, on x [B, L, d]: (out, the
+    layer's aux loss; 0 for dense and vlm)."""
+    if cfg.family == "moe":
+        return nn.moe_block(cfg, lp["moe"], x)
+    return nn.mlp_block(cfg, lp["mlp"], x), torch.zeros((), device=x.device)
+
+
+def _mlp_decode(cfg: ModelConfig, lp: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The layer's MLP or decode-path MoE block on x [B, d]."""
+    if cfg.family == "moe":
+        return nn.moe_block_decode(cfg, lp["moe"], x)
+    return nn.mlp_block(cfg, lp["mlp"], x)
+
+
+def _prefix(cfg: ModelConfig) -> int:
+    return cfg.prefix_len if cfg.family == "vlm" else 0
+
+
+def _embed_inputs(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                  patches: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings [B, Lt, d], after the stub patch embeddings [B,
+    prefix_len, d] (cast to the embedding dtype) for a vlm."""
+    x = nn.embed(cfg, params["embed"], tokens)
+    if cfg.family == "vlm":
+        if patches is None:
+            raise ValueError("a vlm needs its stub patch embeddings "
+                             "(patches [B, prefix_len, d_model])")
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    return x
+
+
+def _layer_fwd(cfg: ModelConfig, lp: Dict, carry, *, prefix_len: int,
+               impl: str):
+    """One decoder layer over the full sequence: carry (h [B, L, d],
+    the aux loss so far) -> (h, aux plus this layer's)."""
+    h, aux = carry
     h = h + nn.attention_block(cfg, lp["attn"],
                                nn.apply_norm(cfg, lp["ln1"], h),
-                               window=cfg.sliding_window, impl=impl)
-    return h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
+                               window=cfg.sliding_window,
+                               prefix_len=prefix_len, impl=impl)
+    out, layer_aux = _mlp(cfg, lp, nn.apply_norm(cfg, lp["ln2"], h))
+    return h + out, aux + layer_aux
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+            patches: Optional[torch.Tensor] = None,
             remat: bool = False, impl: str = "auto",
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward: (logits [B, L, V], aux 0.0). Attention is
-    one flash-attention call per layer (causal, ``cfg.sliding_window``),
-    differentiable through ``ops.attention``. With ``remat`` the kernel
-    runs twice per layer and step (see ``layers.run_layers``)."""
+    """Full-sequence forward: (logits [B, L, V], the layers' summed MoE
+    aux loss; 0 for dense and vlm). A vlm's ``patches`` come first, so
+    its logits cover prefix_len + L positions. Attention is one
+    flash-attention call per layer (causal, ``cfg.sliding_window``,
+    prefix-LM over the patches), differentiable through
+    ``ops.attention``. With ``remat`` the kernel runs twice per layer
+    and step (see ``layers.run_layers``)."""
     _check_family(cfg)
-    x = nn.embed(cfg, params["embed"], tokens)
-    x = nn.run_layers(functools.partial(_layer_fwd, cfg, impl=impl), x,
-                      params["layers"], remat=remat)
+    x = _embed_inputs(cfg, params, tokens, patches)
+    body = functools.partial(_layer_fwd, cfg, prefix_len=_prefix(cfg),
+                             impl=impl)
+    x, aux = nn.run_layers(body, (x, torch.zeros((), device=x.device)),
+                           params["layers"], remat=remat)
     x = nn.apply_norm(cfg, params["final_norm"], x)
     logits = nn.unembed(cfg, _head(cfg, params), x)
-    return logits, torch.zeros((), device=x.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -137,20 +195,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+            patches: Optional[torch.Tensor] = None,
             max_len: Optional[int] = None,
             impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
-    """Process the full prompt ``tokens`` [B, L]; return (last-position
-    logits [B, V], a filled cache of ``cache_size(cfg, max_len or L)``
-    positions). Attention is one flash-attention call per layer (causal,
-    ``cfg.sliding_window``). The cache keeps the trailing ``S``
-    positions; when a windowed prompt is longer than the ring it is
-    rolled by ``L % S`` so that slot ``i`` holds position ``L - S + i``
-    modulo ``S``, as decode's ``pos % S`` indexing expects."""
+    """Process the full prompt ``tokens`` [B, Lt] (after a vlm's
+    ``patches``: L = prefix_len + Lt positions, else L = Lt); return
+    (last-position logits [B, V], a filled cache of ``cache_size(cfg,
+    max_len or L)`` positions). Attention is one flash-attention call
+    per layer (causal, ``cfg.sliding_window``, prefix-LM over the
+    patches). The cache keeps the trailing ``S`` positions; when a
+    windowed prompt is longer than the ring it is rolled by ``L % S`` so
+    that slot ``i`` holds position ``L - S + i`` modulo ``S``, as
+    decode's ``pos % S`` indexing expects. (A vlm prompt longer than
+    ``S`` keeps only its tail: :func:`prefill_kv` relies on that.)"""
     _check_family(cfg)
-    B, L = tokens.shape
+    h = _embed_inputs(cfg, params, tokens, patches)      # [B, L, d]
+    B, L = h.shape[:2]
     S = cache_size(cfg, max_len or L)
     positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
-    h = nn.embed(cfg, params["embed"], tokens)           # [B, L, d]
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
@@ -160,9 +222,10 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             q = nn.apply_rope(q, positions, cfg.rope_theta)
             k = nn.apply_rope(k, positions, cfg.rope_theta)
         attn = ops.attention(q, k, v, causal=True, window=cfg.sliding_window,
-                             logit_softcap=cfg.logit_softcap, impl=impl)
+                             logit_softcap=cfg.logit_softcap, impl=impl,
+                             prefix_len=_prefix(cfg))
         h = h + nn.merge_heads(attn, lp["attn"]["wo"])
-        h = h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
+        h = h + _mlp(cfg, lp, nn.apply_norm(cfg, lp["ln2"], h))[0]
         k_keep = k[:, -S:].to(nn.dt(cfg))
         v_keep = v[:, -S:].to(nn.dt(cfg))
         if cfg.sliding_window is not None and L > S:
@@ -211,7 +274,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         h = h + nn.attention_decode(
             cfg, lp["attn"], attn_in, cache["k"][i], cache["v"][i], pos,
             new_lens, kv_scales=scales)
-        h = h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
+        h = h + _mlp_decode(cfg, lp, nn.apply_norm(cfg, lp["ln2"], h))
     h = nn.apply_norm(cfg, params["final_norm"], h)
     return nn.unembed(cfg, _head(cfg, params), h), {**cache, "lens": new_lens}
 
@@ -260,7 +323,7 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, pool: Dict,
         kp[phys, offset] = k_new.to(kp.dtype)
         vp[phys, offset] = v_new.to(vp.dtype)
         h = h + nn.merge_heads(attn, lp["attn"]["wo"])
-        h = h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
+        h = h + _mlp_decode(cfg, lp, nn.apply_norm(cfg, lp["ln2"], h))
     h = nn.apply_norm(cfg, params["final_norm"], h)
     return nn.unembed(cfg, _head(cfg, params), h)
 
@@ -305,6 +368,20 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Dict, pool: Dict,
             q, kp, vp, page_table, q_offset, kv_lens,
             logit_softcap=cfg.logit_softcap, impl=impl)
         h = h + nn.merge_heads(attn, lp["attn"]["wo"])
-        h = h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
+        h = h + _mlp(cfg, lp, nn.apply_norm(cfg, lp["ln2"], h))[0]
     h = nn.apply_norm(cfg, params["final_norm"], h[:, -1])
     return nn.unembed(cfg, _head(cfg, params), h)
+
+
+def prefill_kv(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+               patches: Optional[torch.Tensor] = None,
+               impl: str = "auto"
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill returning the raw per-layer K/V [L, B, S, Hk, hd] (for
+    scattering into the paged pool) and the last-position logits, as
+    JAX's: :func:`prefill` at ``max_len`` = the token count, so ``S`` =
+    Lt. With a vlm's patches that keeps only the text tokens' K/V (rope
+    positions prefix_len ..), not the prefix's (ROADMAP.md, C9)."""
+    logits, cache = prefill(cfg, params, tokens, patches=patches,
+                            max_len=tokens.shape[1], impl=impl)
+    return logits, cache["k"], cache["v"]

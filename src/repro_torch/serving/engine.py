@@ -1,9 +1,9 @@
 """The continuous-batching serving engine of the port.
 
-Port of the JAX package's ``serving/engine.py`` for the dense
-transformer, on both of its caches, and for the encoder-decoder
-(whisper), SSM (Mamba-2) and hybrid (zamba2) families on the slot-ring
-cache. It drives the identical
+Port of the JAX package's ``serving/engine.py`` for the transformer
+families (dense, MoE and vlm), on both of its caches, and for the
+encoder-decoder (whisper), SSM (Mamba-2) and hybrid (zamba2) families
+on the slot-ring cache. It drives the identical
 ``DriftScheduler`` state machine — admission, dispatch, completion
 feedback (Eq. 5-6) — and, on the paged path, the identical page
 bookkeeping (``kv_cache.PagedSeqLedger`` with the shared-prefix
@@ -18,15 +18,21 @@ and requests.
   cross-attention K/V of the encoder-decoder). A slot's prompt bucket
   prefills in one shot through ``api.prefill`` (one flash-attention
   kernel launch per attention layer; an encoder-decoder's batch carries
-  the stub frontend's zero ``frames``, as in JAX) the iteration its
-  last prompt chunk is consumed, and the resulting cache is copied into the
-  slot. Every slot decodes each step through ``api.decode_step`` at its
-  own depth (``pos = cache["lens"]``); a free slot's lane computes
-  masked garbage, as on the TPU.
+  the stub frontend's zero ``frames``, a vlm's zero ``patches``, as in
+  JAX) the iteration its last prompt chunk is consumed, and the
+  resulting cache is copied into the slot. Every slot decodes each step
+  through ``api.decode_step`` at its own depth (``pos =
+  cache["lens"]``); a free slot's lane computes masked garbage, as on
+  the TPU (and, in an MoE model, takes its share of the decode group's
+  expert capacity, as there).
 * Paged cache (``paged=True``): ``n_slots`` sequences decode together,
   one token per engine step, through
   :func:`transformer.decode_step_paged`: one batched paged-decode kernel
-  launch per layer.
+  launch per layer. Idle slots decode token 0 on the scratch page, as in
+  JAX. A vlm prefills single-shot (no chunked kernel takes its
+  prefix-LM prefill): :func:`transformer.prefill_kv` over its zero
+  patches, then ``kv_cache.write_prefill_pages``; like JAX's, that keeps
+  only the text tokens' K/V (ROADMAP.md, C9).
 * Chunked prefill (``EngineConfig.chunk_prefill_tokens``): a joining
   slot's prompt is consumed across iterations against a per-step token
   budget shared by prefilling slots in join order. On the paged path
@@ -53,8 +59,7 @@ and requests.
 
 The pool holds one extra page the allocator never hands out; inactive
 slots scatter their masked decode writes there. Both caches are updated
-in place. The vlm and MoE families come with a later slice (ROADMAP.md,
-A6).
+in place.
 
 EOS: with randomly-initialised models there is no semantic EOS, so
 requests stop at their ground-truth output length (oracle EOS, clipped
@@ -81,7 +86,7 @@ from ..models.steps import sample_logits
 from ..obs import events as tr
 from ..obs import resolve_recorder
 from .kv_cache import (PagedAllocator, PagedPool, PagedSeqLedger, PrefixTree,
-                       prefix_page_key)
+                       prefix_page_key, write_prefill_pages)
 from .metrics import RunMetrics, summarize_run
 
 
@@ -126,7 +131,8 @@ class SlotState:
     prefill_remaining: int = 0     # uncached prompt tokens not yet consumed
     cached_tokens: int = 0         # prompt tokens served from the cache
     pending_prefill: bool = False  # device prefill not yet executed
-    # "tokens" [1, bucket] prompt ids (+ "frames" for an encoder-decoder)
+    # "tokens" [1, bucket] prompt ids (+ "frames" for an encoder-decoder,
+    # "patches" for a vlm)
     batch: Optional[Dict[str, torch.Tensor]] = None
     bucket: int = 0
     prefill_pos: int = 0           # bucket position device prefill reached
@@ -149,7 +155,6 @@ class ServingEngine:
         self.trace_rid: Optional[int] = None
         if self.trace.enabled:
             self.sched.drift.trace = self.trace
-        # raises NotImplementedError for the families later slices port
         self.api = get_api(cfg)
         c = self.ecfg.chunk_prefill_tokens
         if c is not None and c < 1:
@@ -340,6 +345,10 @@ class ServingEngine:
         st.prefill_remaining = prompt_len - cached
         st.pending_prefill = True
         st.batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
+        if self.cfg.family == "vlm":
+            st.batch["patches"] = torch.zeros(
+                (1, self.cfg.prefix_len, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
         if self.cfg.family == "encdec":
             st.batch["frames"] = torch.zeros(
                 (1, self.cfg.enc_seq, self.cfg.d_model),
@@ -358,15 +367,37 @@ class ServingEngine:
             axis = 1 if full.ndim > 1 else 0
             full.select(axis, slot).copy_(cache_1[name].select(axis, 0))
 
+    @property
+    def _chunked_device_prefill(self) -> bool:
+        """Paged transformer prefill goes through the fused
+        chunked-prefill kernel chunk by chunk. The vlm family keeps the
+        single-shot path: its patch-prefix prefix-LM prefill has no
+        chunked counterpart (JAX's rule)."""
+        return self.ecfg.paged and self.cfg.family != "vlm"
+
     def _run_prefill(self, slot: int, now: float) -> None:
-        """Single-shot device prefill of the slot-ring cache: the slot's
-        last prompt chunk landed, so run the whole bucket at once, copy
-        its cache into the slot and emit the first token."""
+        """Single-shot device prefill (the slot-ring cache, and a paged
+        vlm): the slot's last prompt chunk landed, so run the whole
+        bucket at once and emit the first token. Slot-ring: copy its
+        cache into the slot. Paged vlm: :func:`transformer.prefill_kv`,
+        its K/V written into the slot's pages from the cached boundary
+        on, then the shareable pages donated (JAX's order)."""
         st = self.slots[slot]
-        logits, cache_1 = self.api.prefill(self.cfg, self.params, st.batch,
-                                           max_len=self.ecfg.max_len)
+        if self.ecfg.paged:
+            logits, k_lv, v_lv = transformer.prefill_kv(
+                self.cfg, self.params, st.batch["tokens"],
+                patches=st.batch.get("patches"))
+            cached = self.ledger.cached_tokens(slot)
+            pages = self.ledger.table(slot)[cached // self.ecfg.page_size:]
+            write_prefill_pages(self.pool, (k_lv[:, 0], v_lv[:, 0]), pages,
+                                st.bucket, start_token=cached)
+            if self.prefix_tree is not None:
+                self.ledger.donate(slot, now)
+        else:
+            logits, cache_1 = self.api.prefill(
+                self.cfg, self.params, st.batch, max_len=self.ecfg.max_len)
+            self._insert_cache(slot, cache_1)
         tok = sample_logits(logits, self._gen, self.ecfg.temperature)
-        self._insert_cache(slot, cache_1)
         self._emit_first_token(slot, int(tok[0]), now)
 
     def _advance_prefill(self, slot: int, take: int, now: float) -> None:
@@ -589,7 +620,7 @@ class ServingEngine:
                 self.trace.emit(now, tr.PREFILL_CHUNK,
                                 req_id=st.req.req_id, rid=self.trace_rid,
                                 tenant=st.req.tenant.label, tokens=take)
-            if self.ecfg.paged:
+            if self._chunked_device_prefill:
                 # every chunk executes on device the iteration its
                 # budget is consumed (fused chunked-prefill kernel)
                 self._advance_prefill(slot, take, now)

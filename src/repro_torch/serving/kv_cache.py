@@ -6,7 +6,9 @@ RadixAttention, at page granularity).
 device, ``[L, n_pages, page, Hk, hd]`` per K/V, page-major; the paged
 attention kernels (``kernels/paged_attention.py``,
 ``kernels/chunked_prefill.py``) read it through per-sequence page
-tables. Everything else — :class:`PagedAllocator`, :class:`PrefixTree`,
+tables, and :func:`write_prefill_pages` scatters a single-shot
+prefill's K/V into pages in place. Everything else —
+:class:`PagedAllocator`, :class:`PrefixTree`,
 :class:`PagedSeqLedger`, :func:`prefix_page_key` — is pure host-side
 bookkeeping, copied unchanged from the JAX package's
 ``serving/kv_cache.py`` so both engines run the identical allocation
@@ -732,3 +734,33 @@ class PagedSeqLedger:
     def lens_array(self, seq_ids: List[Optional[int]]) -> np.ndarray:
         return np.array([0 if sid is None else self._seqs[sid].seq_len
                          for sid in seq_ids], np.int32)
+
+
+def write_prefill_pages(pool: PagedPool,
+                        layer_kv: Tuple[torch.Tensor, torch.Tensor],
+                        pages: List[int], n_tokens: int, *,
+                        start_token: int = 0) -> PagedPool:
+    """Scatter a prefilled [L, S, Hk, hd] K/V into the pool's ``pages``,
+    in place, positions ``[start_token, n_tokens)``: page ``i`` takes
+    positions ``start_token + i * page`` onward, a last partial page
+    zero-padded, as the JAX function writes them.
+
+    ``start_token`` skips the leading cache-resident positions: with a
+    shared-prefix hit the donor already wrote pages for tokens
+    ``[0, start_token)``, so ``pages`` covers positions from
+    ``start_token`` (page-aligned) onward only. Returns ``pool``."""
+    if start_token % pool.page_size:
+        raise ValueError(
+            f"start_token {start_token} must be page-aligned "
+            f"({pool.page_size})")
+    k_new, v_new = layer_kv
+    P = pool.page_size
+    for i, page in enumerate(pages):
+        lo = start_token + i * P
+        hi = min(lo + P, n_tokens)
+        if lo >= n_tokens:
+            break
+        for dst, src in ((pool.k, k_new), (pool.v, v_new)):
+            dst[:, page, :hi - lo] = src[:, lo:hi].to(dst.dtype)
+            dst[:, page, hi - lo:] = 0
+    return pool

@@ -27,7 +27,8 @@ COPIES = [
     "configs/smollm_135m.py", "configs/h2o_danube_1_8b.py",
     "configs/mamba2_2_7b.py", "configs/minitron_4b.py",
     "configs/minitron_8b.py", "configs/zamba2_1_2b.py",
-    "configs/whisper_large_v3.py",
+    "configs/whisper_large_v3.py", "configs/paligemma_3b.py",
+    "configs/grok_1_314b.py", "configs/llama4_scout_17b_a16e.py",
     "distributed/fault_tolerance.py",
     "cluster/__init__.py", "cluster/replica.py", "cluster/admission.py",
     "cluster/router.py", "cluster/autoscaler.py", "cluster/metrics.py",
@@ -39,3 +40,11 @@ COPIES = [
 def test_copy_is_byte_equal_to_its_jax_original(rel):
     port, jax_file = SRC / "repro_torch" / rel, SRC / "repro" / rel
     assert port.read_bytes() == jax_file.read_bytes(), rel
+
+
+def test_arch_registry_lists_the_jax_catalog():
+    """The port's ``--arch`` choices are the JAX package's ten archs, in
+    its order."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro_torch.configs import ARCHS
+    assert ARCHS == JAX_ARCHS and len(ARCHS) == 10

@@ -489,14 +489,21 @@ def test_pd_extract_and_inject_bit_exact_on_the_card(cuda):
                                         ("minitron-8b", False),
                                         ("mamba2-2.7b", False),
                                         ("zamba2-1.2b", False),
-                                        ("whisper-large-v3", False)])
+                                        ("whisper-large-v3", False),
+                                        ("grok-1-314b", True),
+                                        ("grok-1-314b", False),
+                                        ("llama4-scout-17b-a16e", True),
+                                        ("llama4-scout-17b-a16e", False),
+                                        ("paligemma-3b", True),
+                                        ("paligemma-3b", False)])
 def test_engine_serves_each_family_on_cuda(cuda, arch, paged):
     """Smoke-size engines on the card: every request completes, and each
     kernel of the path launches exactly as often as the path says (paged:
     batched decode and chunked prefill once per layer and iteration or
-    chunk; slot-ring: flash attention once per attention layer and
-    prefill, none for Mamba-2; whisper's encoder, decoder and
-    cross-attention layers), and no other kernel."""
+    chunk, a vlm's single-shot prefill through flash attention instead;
+    slot-ring: flash attention once per attention layer and prefill,
+    none for Mamba-2; whisper's encoder, decoder and cross-attention
+    layers), and no other kernel."""
     cfg = smoke_config(arch)
     params = get_api(cfg).init(cfg, torch.Generator(device=cuda).manual_seed(0),
                                device=cuda)
@@ -517,12 +524,61 @@ def test_engine_serves_each_family_on_cuda(cuda, arch, paged):
     assert eng.run_until_drained(max_steps=2000).n_completed == 5
     torch.cuda.synchronize()
     got = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
-    if paged:
+    if paged and cfg.family == "vlm":
+        want = [cfg.n_layers * eng.n_decode_launches, 0, 0,
+                cfg.n_layers * 5, 0]
+    elif paged:
         want = [cfg.n_layers * eng.n_decode_launches,
                 cfg.n_layers * eng.n_prefill_launches, 0, 0, 0]
     else:
-        per_prefill = {"dense": cfg.n_layers, "ssm": 0,
+        per_prefill = {"dense": cfg.n_layers, "moe": cfg.n_layers,
+                       "vlm": cfg.n_layers, "ssm": 0,
                        "hybrid": -(-cfg.n_layers // max(cfg.attn_every, 1)),
                        "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}
         want = [0, 0, 0, per_prefill[cfg.family] * 5, 0]
     assert got == want
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-scout-17b-a16e",
+                                  "paligemma-3b"])
+def test_moe_and_vlm_paths_kernel_against_plain(cuda, arch):
+    """The smoke config in float32 on the card: a slot-ring prefill (a
+    vlm's over random patches: B4 with the prefix-LM mask) and a decode
+    step from its cache, a paged prefill chunk (B2) and a paged decode
+    step (B1), each through the kernels against the same call through
+    the plain versions, logits within ``atol=rtol=1e-4`` (two layers of
+    kernel outputs within the float32 kernel tolerance)."""
+    cfg = smoke_config(arch).replace(dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = transformer.init(cfg, gen, device=cuda)
+    tokens = torch.randint(1, cfg.vocab, (2, 24), generator=gen, device=cuda)
+    patches = (0.02 * torch.randn(2, cfg.prefix_len, cfg.d_model,
+                                  generator=gen, device=cuda)
+               if cfg.family == "vlm" else None)
+    step = torch.randint(1, cfg.vocab, (2,), generator=gen, device=cuda)
+    P, pps = 8, 8
+    shape = (cfg.n_layers, 2 * pps + 1, P, cfg.n_kv_heads, cfg.d_head)
+    k0 = torch.randn(shape, generator=gen, device=cuda)
+    v0 = torch.randn(shape, generator=gen, device=cuda)
+    table = torch.arange(2 * pps, dtype=torch.int32,
+                         device=cuda).reshape(2, pps)
+    q_off = torch.tensor([8, 16], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([37, 40], dtype=torch.int32, device=cuda)
+
+    def run(impl):
+        lp, cache = transformer.prefill(cfg, params, tokens, patches=patches,
+                                        max_len=64, impl=impl)
+        ld, _ = transformer.decode_step(cfg, params, cache, step,
+                                        cache["lens"])
+        pool = {"k": k0.clone(), "v": v0.clone()}
+        lc = transformer.prefill_chunk_paged(cfg, params, pool, tokens[:, :16],
+                                             table, q_off, impl=impl)
+        lg = transformer.decode_step_paged(cfg, params, pool, step, table,
+                                           lens, max_pages=8, impl=impl)
+        return lp, ld, lc, lg
+
+    before = flash_attention.launches
+    got = run("auto")
+    assert flash_attention.launches - before == cfg.n_layers
+    for g, w in zip(got, run("reference")):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)

@@ -13,7 +13,9 @@
   per-slot position (ROADMAP C); an int8-KV arm; minitron-4b and
   minitron-8b. The slot-ring arms also compare every slot's cache depth
   after every step. (The mamba2 and zamba2 slot-ring arms are in
-  ``test_torch_ssm_serving.py`` and ``test_torch_hybrid.py``.)
+  ``test_torch_ssm_serving.py`` and ``test_torch_hybrid.py``, the MoE
+  and vlm arms of both caches in ``test_torch_moe.py`` and
+  ``test_torch_vlm.py``.)
 * Paged vs slot-ring in the port: same completions and observed
   lengths, and the page allocator drains.
 * Scheduler: the port's copy of ``DriftScheduler`` dispatches the same
@@ -247,8 +249,10 @@ def test_tokenize_full_vocab_legacy_layout():
 
 
 def test_engine_refuses_what_later_slices_port():
-    """vlm and MoE are later slices; encdec is served on the slot-ring
-    cache since its slice (its self and cross K/V in the ring)."""
+    """Since the vlm and MoE slice every family is served: vlm and MoE
+    on both caches, encdec on the slot-ring cache (its self and cross
+    K/V in the ring). A paged encdec or SSM model is still refused, with
+    JAX's ValueError."""
     sched = DriftScheduler("fifo")
     wcfg = smoke_config("whisper-large-v3")
     wparams = get_api(wcfg).init(wcfg, torch.Generator().manual_seed(0),
@@ -257,9 +261,19 @@ def test_engine_refuses_what_later_slices_port():
                         device="cpu")
     assert eng.api is get_api(wcfg)
     assert sorted(eng.cache) == ["cross_k", "cross_v", "k", "lens", "v"]
-    for family in ("vlm", "moe"):
-        with pytest.raises(NotImplementedError, match=r"later slice.*A6"):
-            ServingEngine(CFG_T.replace(family=family), PARAMS_T, sched,
+    for arch in ("paligemma-3b", "grok-1-314b", "llama4-scout-17b-a16e"):
+        cfg = smoke_config(arch)
+        params = get_api(cfg).init(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+        for paged in (False, True):
+            eng = ServingEngine(cfg, params, sched, EngineConfig(
+                paged=paged, n_slots=2, max_len=48), device="cpu")
+            assert eng.api is get_api(smoke_config("smollm-135m"))
+            assert eng._chunked_device_prefill == (
+                paged and cfg.family != "vlm")
+    for arch in ("whisper-large-v3", "mamba2-2.7b"):
+        with pytest.raises(ValueError, match="transformer-family"):
+            ServingEngine(smoke_config(arch), wparams, sched,
                           EngineConfig(paged=True), device="cpu")
 
 

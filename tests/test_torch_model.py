@@ -370,9 +370,14 @@ def test_quantize_kv_matches_jax():
 
 
 def test_other_families_raise():
-    cfg = smoke_config("smollm-135m").replace(family="moe")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """The transformer runs the dense, moe and vlm families; an unknown
+    family raises."""
+    cfg = smoke_config("smollm-135m").replace(family="rnn")
+    with pytest.raises(ValueError, match="'rnn'"):
         ttr.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="'rnn'"):
+        ttr.forward(cfg, _params("float32")[3],
+                    torch.zeros(1, 4, dtype=torch.long))
 
 
 def test_tensor_from_numpy_float32_roundtrip():

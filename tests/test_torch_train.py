@@ -279,21 +279,29 @@ def test_registry_families():
     dense = smoke_config(DENSE)
     assert registry.get_api(dense).init is ttr.init
     assert registry.get_api(smoke_config("zamba2-1.2b")).init is hybrid.init
-    # encdec is a ported family (frames routed by the adapters); vlm and
-    # MoE are refused up front
+    # encdec routes frames, vlm patches; moe and vlm share the
+    # transformer's entries; an unknown family is refused
     assert registry.get_api(smoke_config("whisper-large-v3")).decode_step \
         is encdec.decode_step
-    for family, item in (("vlm", "A6"), ("moe", "A6")):
-        with pytest.raises(NotImplementedError, match=f"later slice.*{item}"):
-            registry.get_api(cfg.replace(family=family))
-    _, _, _, pt = _params(DENSE, "float32")
-    patched = {"tokens": torch.zeros(1, 4, dtype=torch.long),
-               "patches": torch.zeros(1, 2, dense.d_model)}
-    with pytest.raises(NotImplementedError, match="later slice"):
-        registry.get_api(dense).forward(dense, pt, patched)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        registry.get_api(dense).prefill(dense, pt, patched)
-    assert SSM in ARCHS
+    for family in ("vlm", "moe"):
+        assert registry.get_api(cfg.replace(family=family)) is \
+            registry.get_api(dense)
+    with pytest.raises(ValueError, match="unknown model family 'rnn'"):
+        registry.get_api(cfg.replace(family="rnn"))
+    vlm = smoke_config("paligemma-3b").replace(dtype="float32")
+    pv = ttr.init(vlm, torch.Generator().manual_seed(0), device="cpu")
+    patched = {"tokens": torch.ones(1, 4, dtype=torch.long),
+               "patches": torch.randn(1, vlm.prefix_len, vlm.d_model,
+                                      generator=torch.Generator()
+                                      .manual_seed(1))}
+    logits, _ = registry.get_api(vlm).forward(vlm, pv, patched)
+    want, _ = ttr.forward(vlm, pv, patched["tokens"],
+                          patches=patched["patches"])
+    assert logits.shape[1] == vlm.prefix_len + 4 and torch.equal(logits, want)
+    last, cache = registry.get_api(vlm).prefill(vlm, pv, patched, max_len=32)
+    torch.testing.assert_close(last, want[:, -1], atol=1e-5, rtol=1e-5)
+    assert cache["lens"].tolist() == [vlm.prefix_len + 4]
+    assert SSM in ARCHS and "paligemma-3b" in ARCHS
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +527,9 @@ LOG_LINE = re.compile(r"^step +\d+ loss=\d+\.\d{4} gnorm=\d+\.\d{3} "
                       r"lr=\d\.\d{2}e[-+]\d{2} \(\d+\.\d{2}s/step\)$")
 
 
-@pytest.mark.parametrize("arch,seq", [(SSM, 96), (DENSE, 32)])
+@pytest.mark.parametrize("arch,seq", [(SSM, 96), (DENSE, 32),
+                                      ("grok-1-314b", 32),
+                                      ("paligemma-3b", 32)])
 def test_launcher_trains_and_resumes_on_cpu(arch, seq, tmp_path, capsys):
     common = ["--device", "cpu", "--arch", arch, "--preset", "smoke",
               "--seq", str(seq), "--batch", "2", "--log-every", "1",
