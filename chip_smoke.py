@@ -5,8 +5,11 @@ through a prefill/decode-disaggregated cluster of paged engines, serves
 full-width minitron-8b (both engines), mamba2-2.7b, zamba2-1.2b and
 whisper-large-v3 (slot-ring), paligemma-3b (both engines), grok-1-314b
 (both engines, depth cut to 4) and llama4-scout-17b-a16e (slot-ring,
-depth cut to 8), and trains full-width mamba2-2.7b, smollm-135m and
-whisper-large-v3, on one GPU.
+depth cut to 8), trains full-width mamba2-2.7b, smollm-135m and
+whisper-large-v3, runs six of the assigned (arch x shape) cells' step
+units at full width, and the port's serving and training examples, on
+one GPU, while the one-card dry run counts all 33 cells on the meta
+device in a process beside it.
 
     python3 chip_smoke.py
 
@@ -63,7 +66,10 @@ first that fails:
                  both decode kernels at groups 5 and 6 and at
                  paligemma-3b's group 8, D 256, at their split edges;
                  the chunk at groups 5 and 6, q_offset 0 and 128; the
-                 flash gradient at paligemma-3b's prefix shape;
+                 flash gradient at paligemma-3b's prefix shape; flash
+                 attention at the cells' shapes (smollm-135m's heads,
+                 causal 1 x 32,768 and 8 x 4,096), on a generator of
+                 their own;
 4. kernel_times  each kernel at its main path's full-width shapes: its
                  time per call (CUDA events, the host's issue time
                  included), the plain version's, a library call's where
@@ -83,7 +89,9 @@ first that fails:
                  1,500) calls, non-causal, beside SDPA; paligemma-3b's
                  320-token prefill (256-token prefix, SDPA given the
                  mask) and decode (D 256), and grok-1's decode call and
-                 chunk with softcap 30 (SDPA without the cap);
+                 chunk with softcap 30 (SDPA without the cap); flash
+                 attention at the cells' 1 x 32,768 and 8 x 4,096 (SDPA
+                 over K/V expanded to the 9 query heads);
 5. engine        full-width smollm-135m, bf16, 24 requests through
                  DriftScheduler("sjf") and the paged engine, with the
                  kernels' launch counts checked against the iterations;
@@ -219,10 +227,40 @@ first that fails:
 40. train_whisper  whisper-large-v3 at full width and depth, batch 2 x
                  448 decoder tokens over the launcher's stub frames, 3
                  AdamW steps with remat: finite losses, flash launches
-                 exactly 2 x 96 x 3.
+                 exactly 2 x 96 x 3;
+41. cell_<arch>_<shape>  six assigned cells at full width and depth,
+                 the batch cut to what one card holds (printed as
+                 ``reduced``), inputs from a seed on the card:
+                 smollm-135m's prefill_32k (make_prefill_step, 2 x
+                 32,768: B4 30 launches a step), decode_32k
+                 (make_serve_step, 32 sequences, every one of the 32,768
+                 cache entries valid) and train_4k (make_train_step with
+                 AdamW, 8 x 4,096: B4 60 a step), and the long_500k
+                 decode step of mamba2-2.7b, zamba2-1.2b and
+                 h2o-danube-1.8b at position 524,287 (state, window
+                 rings full); each the median step time of 3 after a
+                 warm-up (CUDA events), tokens/s, peak GiB, B4
+                 launches, and the cost counter's bound at the cut
+                 batch (``launch/dryrun.count_cell`` on meta) with the
+                 measured time over it;
+42. cells_check  smollm-135m's prefill_32k step, depth cut to 2 layers,
+                 at L 32,768 and 20,007: the kernel path's last logits
+                 and cache against the plain path, gated in float32;
+43. example_serving  the port's multi_tenant_serving example at full
+                 width (smollm-135m, 32 requests, sjf): its lines, ms an
+                 iteration, tokens/s, B4 launches exactly 30 x prefills;
+44. example_train  the port's train_lm example, --preset full, 3 steps,
+                 a checkpoint in a temporary directory: B4 2 x 30 x 3;
+45. dryrun       the one-card dry run (``python -m
+                 repro_torch.launch.dryrun``), started in its own process
+                 when the run begins: one line per cell (FLOPs and bytes
+                 counted on meta, model FLOPs, the bound on the H100,
+                 whether argument + output bytes fit one card); any cell
+                 in error fails the run;
+46. total        the whole run's seconds.
 
-Each engine, cluster and train phase sets every kernel's launch count
-to 0 just before it runs and reads the counts just after.
+Each engine, cluster, train, cell and example phase sets every kernel's
+launch count to 0 just before it runs and reads the counts just after.
 
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -235,10 +273,12 @@ import functools
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -635,8 +675,15 @@ def kernel_check_phase(dev):
         (1, 128, 128, 40, 8, 128, {}),
         (1, 256, 256, 40, 8, 128, {}),
     ]
+    # B4 at the cells' shapes, smollm-135m's heads: prefill_32k's one
+    # causal sequence of 32,768 and train_4k's 8 x 4,096, on a generator
+    # of their own (worst errors under cells_*)
+    shapes_flash_cells = [(1, 32768, 32768, 9, 3, 64, {}),
+                          (8, 4096, 4096, 9, 3, 64, {})]
+    gen_cells = torch.Generator(device=dev).manual_seed(21)
     for g, shapes, tag in ((gen, shapes_flash, ""),
-                           (gen_mv, shapes_flash_mv, "moe_vlm_")):
+                           (gen_mv, shapes_flash_mv, "moe_vlm_"),
+                           (gen_cells, shapes_flash_cells, "cells_")):
         for dtype in (torch.float32, torch.bfloat16):
             for B, Lq, Lk, H, Hk, D, kw in shapes:
                 for softcap in (None, 30.0):
@@ -836,8 +883,8 @@ def decode_split_checks(gen, dev, worst, scenes, tag=""):
     return n_cases
 
 
-def time_ms(fn, flush):
-    """Median over TIMING_REPS of one call between CUDA events, after a
+def time_ms(fn, flush, reps=TIMING_REPS):
+    """Median over ``reps`` of one call between CUDA events, after a
     warm-up, with L2 flushed before each call (the engine reaches each
     layer's pages cold: the pool is larger than L2)."""
     for _ in range(5):
@@ -845,7 +892,7 @@ def time_ms(fn, flush):
     times = []
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    for _ in range(TIMING_REPS):
+    for _ in range(reps):
         flush.zero_()
         start.record()
         fn()
@@ -977,6 +1024,10 @@ def flash_bound(q, k, causal=True, window=None, prefix_len=0):
     e = q.element_size()
     B, Lq, H, D = q.shape
     Lk, Hk = k.shape[1], k.shape[2]
+    n_bytes = 2 * B * Lq * H * D * e + 2 * B * Lk * Hk * D * e
+    if causal and window is None and not prefix_len and Lq == Lk:
+        # the causal triangle, without an Lq x Lk mask on the host
+        return n_bytes, 4 * B * H * D * (Lq * (Lq + 1) // 2)
     q_pos = torch.arange(Lq)[:, None] + (Lk - Lq)
     k_pos = torch.arange(Lk)[None, :]
     mask = torch.ones(Lq, Lk, dtype=torch.bool)
@@ -986,7 +1037,6 @@ def flash_bound(q, k, causal=True, window=None, prefix_len=0):
         mask &= q_pos - k_pos < window
     if prefix_len:
         mask |= k_pos < prefix_len
-    n_bytes = 2 * B * Lq * H * D * e + 2 * B * Lk * Hk * D * e
     return n_bytes, 4 * B * H * D * int(mask.sum())
 
 
@@ -1062,12 +1112,13 @@ def sdpa_prefill_inputs(q, k, v, table, off, kv):
             vg.transpose(1, 2).contiguous(), mask[:, None])
 
 
-def timings(kernel, plain, library, flush):
-    """A row's times: ``ms``, ``plain_ms`` and ``library_ms`` per call
-    (CUDA events, the host's issue time included, as in every earlier
-    table), and ``device_ms`` and ``library_device_ms``, the kernels'
-    own time on the card."""
-    out = dict(ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
+def timings(kernel, plain, library, flush, plain_reps=TIMING_REPS):
+    """A row's times: ``ms``, ``plain_ms`` (median of ``plain_reps``) and
+    ``library_ms`` per call (CUDA events, the host's time to enqueue the
+    call included, as in every earlier table), and ``device_ms`` and
+    ``library_device_ms``, the kernels' own time on the card."""
+    out = dict(ms=time_ms(kernel, flush),
+               plain_ms=time_ms(plain, flush, plain_reps),
                library_ms=None, device_ms=device_ms(kernel, flush),
                library_device_ms=None)
     if library is not None:
@@ -1300,6 +1351,38 @@ def kernel_times_phase(dev):
                   None, flush),
         bytes=n_bytes, flops=flops))
     del x, a, b, c, got, want
+
+    # the cells' B4 calls at smollm-135m's heads: prefill_32k's causal
+    # 1 x 32,768 and train_4k's 8 x 4,096. SDPA gets K/V expanded to the
+    # 9 query heads (its flash backend, whatever it does with GQA). Last
+    # in the phase, the plain version timed over 5 calls at 32,768: after
+    # 65 of its 0.3 s calls in a row, torch.profiler's captures in the
+    # same process lose kernels (the SSD row's count read 1 of 3)
+    for B, L, path in ((1, 32768, "prefill_32k cell (smollm-135m)"),
+                       (8, 4096, "train_4k cell (smollm-135m, forward)")):
+        q, k, v = flash_timing_scene(dev, B, L)
+        got = ops.attention(q, k, v, impl="cuda")
+        want = ops.attention(q, k, v, impl="reference")
+        err = max_err(got, want)
+        if not within(got, want, torch.bfloat16):
+            fail(f"flash kernel vs plain, {path}: max abs err {err}")
+        group = SMOLLM_HEADS[0] // SMOLLM_HEADS[1]
+        sq = q.transpose(1, 2).contiguous()
+        sk, sv = (t.repeat_interleave(group, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        n_bytes, flops = flash_bound(q, k)
+        extra.append(dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:124",
+            max_abs_err=err, batch=B, tokens=L, heads=SMOLLM_HEADS,
+            path=path, library_kv_expanded=True,
+            **timings(lambda: ops.attention(q, k, v, impl="cuda"),
+                      lambda: ops.attention(q, k, v, impl="reference"),
+                      lambda: sdpa(sq, sk, sv, is_causal=True), flush,
+                      plain_reps=5 if L > 4096 else TIMING_REPS),
+            bytes=n_bytes, flops=flops))
+        del q, k, v, sq, sk, sv, got, want
 
     path = {"batched_paged_decode_attention": "paged engine (decode)",
             "paged_decode_attention": "none (no engine path)",
@@ -2543,6 +2626,294 @@ def train_whisper_phase(dev, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the assigned cells: the one-card dry run on meta, the step units on the
+# card at full width, and the port's examples
+# ---------------------------------------------------------------------------
+
+def start_dryrun(out_dir):
+    """The port's dry run over every (arch x shape) cell, on the meta
+    device in a process of its own (no card; about two and a half
+    minutes of one CPU core), started first so that it runs beside the
+    card's phases. ``dryrun_phase`` reads its records."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
+         "--shape", "all", "--out", out_dir, "--force"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_phase(proc, out_dir, t_start):
+    """One line per cell of the dry run started by ``start_dryrun``: its
+    FLOPs and bytes counted on meta, the model FLOPs, the lower bound on
+    the H100 and whether argument + output bytes fit one card. Fails on
+    a cell in error or a cell missing."""
+    from repro_torch.configs import ARCHS, SHAPES, cells_for, get_config
+    log, _ = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t_start
+    recs = [json.loads(p.read_text())
+            for p in sorted(Path(out_dir).glob("*.json"))]
+    status = {}
+    for r in recs:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+        if r["status"] != "ok":
+            phase("dryrun", arch=r["arch"], shape=r["shape"],
+                  status=r["status"], reason=r.get("reason", r.get("error")))
+            continue
+        rf = r["roofline"]
+        phase("dryrun", arch=r["arch"], shape=r["shape"], status="ok",
+              flops=r["cost_analysis"]["flops"],
+              bytes=r["cost_analysis"]["bytes accessed"],
+              model_flops=rf["model_flops_total"],
+              bound_s=rf["step_time_lower_bound_s"],
+              bound_io_s=max(rf["compute_s"], rf["memory_io_lower_s"]),
+              bottleneck=rf["bottleneck"],
+              argument_bytes=r["memory_analysis"]["argument_size_in_bytes"],
+              output_bytes=r["memory_analysis"]["output_size_in_bytes"],
+              fits_one_card=r["fits_one_card"], count_s=r["run_s"])
+    want = sum(len(cells_for(get_config(a))) for a in ARCHS)
+    phase("dryrun", cells=len(recs), status=status, seconds_from_start=wall)
+    if proc.returncode != 0 or status.get("error") or \
+            len(recs) != len(ARCHS) * len(SHAPES) or status.get("ok") != want:
+        fail(f"dryrun: exit {proc.returncode}, {status} of {len(recs)} "
+             f"records, want {want} ok:\n{log[-3000:]}")
+
+
+# The cells run on the card: (arch, shape, batch). The batch is cut to
+# what one H100 holds (from SHAPES' global batch); depth and widths are
+# the published ones. decode_32k at 128 sequences needs 96.6 GB of cache.
+CELLS = (("smollm-135m", "prefill_32k", 2), ("smollm-135m", "decode_32k", 32),
+         ("smollm-135m", "train_4k", 8), ("mamba2-2.7b", "long_500k", 1),
+         ("zamba2-1.2b", "long_500k", 1), ("h2o-danube-1.8b", "long_500k", 1))
+CELL_SEED = 22
+CELL_REPS = 3
+
+
+def flash_per_step(cfg, kind):
+    """B4 launches of one step of a dense model: one a layer in a
+    prefill, two in a train step (forward and remat recompute), none in
+    a decode step (plain, as in JAX)."""
+    return {"prefill": 1, "train": 2, "decode": 0}[kind] * cfg.n_layers
+
+
+def cell_phase(dev, card, arch, shape_name, batch):
+    """``arch``'s ``shape_name`` cell on the card at full width and depth,
+    batch cut to ``batch``: the step unit (``make_prefill_step``,
+    ``make_serve_step`` with every cache entry valid, or
+    ``make_train_step`` with AdamW) on inputs drawn from CELL_SEED on
+    the card; one warm-up and CELL_REPS timed steps (CUDA events), the
+    launch counts set to 0 just before and read just after; the cost
+    counter's bound at the cut batch beside the measured time."""
+    import dataclasses
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.launch.mesh import HW
+    from repro_torch.models.registry import get_api
+    from repro_torch.models.steps import make_prefill_step, make_serve_step
+    label = f"cell_{arch}_{shape_name}"
+    shape = SHAPES[shape_name]
+    cut = dataclasses.replace(shape, global_batch=batch)
+    L = shape.seq_len
+    torch.cuda.reset_peak_memory_stats()
+    if shape.kind == "train":
+        from repro_torch.configs import get_config
+        from repro_torch.launch.train import build
+        cfg, fields = get_config(arch), dict(card=card, init_seed=CELL_SEED)
+        params, _, opt_state, step = build(cfg, steps=100, lr=3e-4,
+                                           seed=CELL_SEED, device=dev)
+    else:
+        cfg, params, fields = init_on_card(arch, dev, card, CELL_SEED)
+    gen = torch.Generator(device=dev).manual_seed(CELL_SEED + 1)
+    if shape.kind == "train":
+        tokens = torch.randint(0, cfg.vocab, (batch, L + 1), generator=gen,
+                               device=dev, dtype=torch.int32)
+        batch_in = {"tokens": tokens[:, :-1].contiguous(),
+                    "labels": tokens[:, 1:].contiguous()}
+        run = lambda: step(params, opt_state, batch_in)[2]["loss"]  # noqa: E731
+        n_tokens = batch * L
+    elif shape.kind == "prefill":
+        step = make_prefill_step(cfg, max_len=L)
+        batch_in = {"tokens": torch.randint(0, cfg.vocab, (batch, L),
+                                            generator=gen, device=dev,
+                                            dtype=torch.int32)}
+        run = lambda: step(params, batch_in, None)[0]  # noqa: E731
+        n_tokens = batch * L
+    else:
+        # every cache entry valid: lens L - 1 becomes min(L, ring) in the
+        # step, which then reads the whole cache (a window's full ring)
+        cache = get_api(cfg).init_cache(cfg, batch, L, device=dev)
+        for t in cache.values():
+            if t.is_floating_point():
+                t.normal_(generator=gen)
+        cache["lens"].fill_(L - 1)
+        tokens = torch.randint(0, cfg.vocab, (batch,), generator=gen,
+                               device=dev, dtype=torch.int32)
+        pos = torch.tensor(L - 1, dtype=torch.int32, device=dev)
+        step = make_serve_step(cfg)
+        run = lambda: step(params, cache, tokens, pos, None)[0]  # noqa: E731
+        n_tokens = batch
+        fields["cache_bytes"] = sum(t.nbytes for t in cache.values())
+    torch.cuda.synchronize()
+    reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(CELL_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    launches = read_launches()
+    peak = peak_gb()
+    if shape.kind == "train":
+        ok = bool(torch.isfinite(out))
+    else:
+        ok = out.shape == (batch,) and int(out.min()) >= 0 and \
+            int(out.max()) < cfg.vocab
+    t = statistics.median(times)
+    rec = count_cell(cfg, cut)
+    rf = rec["roofline"]
+    bound_io = max(rf["compute_s"], rf["memory_io_lower_s"])
+    flash = flash_per_step(cfg, shape.kind)
+    steps = CELL_REPS + 1
+    phase(label, arch=arch, shape=shape_name, kind=shape.kind, **fields,
+          n_layers=cfg.n_layers, dtype=cfg.dtype,
+          reduced=dict(global_batch=[shape.global_batch, batch]),
+          seq_len=L, step_s=t, step_s_all=times, tokens_per_s=n_tokens / t,
+          peak_gib=peak, flash_launches=launches["flash_attention"],
+          flash_per_step=launches["flash_attention"] / steps,
+          launches=launches, flops=rec["cost_analysis"]["flops"],
+          bytes=rec["cost_analysis"]["bytes accessed"],
+          model_flops=rf["model_flops_total"],
+          mfu=rf["model_flops_total"] / t / HW["peak_flops_bf16"],
+          bound_s=rf["step_time_lower_bound_s"], bound_by=rf["bottleneck"],
+          time_over_bound=t / rf["step_time_lower_bound_s"],
+          bound_io_s=bound_io, time_over_io_bound=t / bound_io,
+          count_s=rec["run_s"])
+    if not ok:
+        fail(f"{label}: output out of range or not finite: {out}")
+    if launches["flash_attention"] != flash * steps or \
+            any(n for k, n in launches.items() if k != "flash_attention"):
+        fail(f"{label}: launches {launches}, want {flash} flash launches a "
+             f"step over {steps} steps and no other kernel")
+    del params, run, out
+    torch.cuda.empty_cache()
+
+
+CELLS_CHECK_LAYERS = 2
+CELLS_CHECK_LENGTHS = (32_768, 20_007)
+
+
+def cells_check_phase(dev, card):
+    """smollm-135m's prefill_32k step at full width, depth cut to 2
+    layers, one sequence of 32,768 tokens and one of 20,007 (not a
+    multiple of 64): the kernel path's first token, last logits and
+    cache against ``impl="reference"``, gated in float32 as the other
+    checks of full-width models (within the plain path's own
+    bf16-vs-float32 deviation), the bf16 deviation printed."""
+    from repro_torch.models.registry import get_api
+    cfg, params, fields = init_on_card("smollm-135m", dev, card, CELL_SEED,
+                                       n_layers=CELLS_CHECK_LAYERS)
+    p32, c32 = _cast(params, torch.float32), cfg.replace(dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(CELL_SEED + 2)
+    for L in CELLS_CHECK_LENGTHS:
+        tokens = torch.randint(0, cfg.vocab, (1, L), generator=gen,
+                               device=dev, dtype=torch.int32)
+
+        def run(p, c, impl):
+            logits, cache = get_api(c).prefill(c, p, {"tokens": tokens},
+                                               max_len=L, impl=impl)
+            return logits.float(), cache["k"].float(), cache["v"].float()
+
+        reset_launches()
+        kern = run(params, cfg, "auto")
+        launches = read_launches()
+        plain = run(params, cfg, "reference")
+        plain32, kern32 = run(p32, c32, "reference"), run(p32, c32, "auto")
+        torch.cuda.synchronize()
+        if {k: n for k, n in launches.items() if n} != \
+                {"flash_attention": cfg.n_layers}:
+            fail(f"cells_check: launches {launches}, want {cfg.n_layers} "
+                 "flash launches")
+        cache_tol = max(max_err(a, b) for a, b in zip(plain[1:], plain32[1:]))
+        cache_err = max(max_err(a, b) for a, b in zip(kern32[1:], plain32[1:]))
+        check_logits("cells_check", kern[:1], plain[:1], plain32[:1],
+                     kern32=kern32[:1], arch=cfg.name, n_layers=cfg.n_layers,
+                     depth_cut_from=30, seq_len=L, launches=launches,
+                     max_abs_cache_err_f32=cache_err,
+                     tol_cache_bf16_vs_f32_plain=cache_tol, card=card)
+        if cache_err > cache_tol:
+            fail(f"cells_check L {L}: cache kernels vs plain in float32: max "
+                 f"abs err {cache_err} > {cache_tol}")
+        del kern, plain, plain32, kern32
+    del params, p32
+    torch.cuda.empty_cache()
+
+
+def example_serving_phase(dev, card):
+    """The port's multi_tenant_serving example as a user runs it on the
+    card (full-width smollm-135m, 32 requests, sjf), launch counts set
+    to 0 just before and read just after: every request completes, B4
+    launched 30 x prefills, no other kernel."""
+    from repro_torch.examples import multi_tenant_serving
+    reset_launches()
+    eng, wall = multi_tenant_serving.main(
+        ["--preset", "full", "--requests", "32", "--policy", "sjf",
+         "--device", str(dev)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    done = eng.sched.completed
+    prefills = sum(r.prefill_end is not None for r in done)
+    tokens = sum(r.observed_output_tokens for r in done)
+    phase("example_serving", arch=eng.cfg.name, n_layers=eng.cfg.n_layers,
+          card=card, completed=len(done), iterations=eng.step_count,
+          prefills=prefills, tokens=tokens, wall_s=wall,
+          ms_per_iteration=1e3 * wall / eng.step_count,
+          tokens_per_s=tokens / wall, flash_launches=launches[
+              "flash_attention"], launches=launches)
+    if len(done) != 32 or prefills != 32:
+        fail(f"example_serving: {len(done)} completed, {prefills} prefills")
+    if launches["flash_attention"] != eng.cfg.n_layers * prefills or \
+            any(n for k, n in launches.items() if k != "flash_attention"):
+        fail(f"example_serving: launches {launches}, want "
+             f"{eng.cfg.n_layers} x {prefills} flash launches only")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def example_train_phase(dev, card):
+    """The port's train_lm example with ``--preset full`` (smollm-135m,
+    8 x 128) for 3 steps on the card, its checkpoint written to a
+    temporary directory: B4 launched 2 x 30 x 3 times, the checkpoint
+    at step 3."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.examples import train_lm
+    flash = 2 * get_config("smollm-135m").n_layers * 3
+    with tempfile.TemporaryDirectory() as ckpt:
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = train_lm.main(["--preset", "full", "--steps", "3", "--device",
+                            str(dev), "--checkpoint-dir", ckpt])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        latest = CheckpointManager(ckpt).latest_step()
+    phase("example_train", card=card, exit=rc, wall_s=wall,
+          checkpoint_step=latest, flash_launches=launches["flash_attention"],
+          launches=launches)
+    if rc != 0 or latest != 3 or launches["flash_attention"] != flash \
+            or any(n for k, n in launches.items() if k != "flash_attention"):
+        fail(f"example_train: exit {rc}, checkpoint at {latest}, launches "
+             f"{launches} (want {flash} flash launches only)")
+    torch.cuda.empty_cache()
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -2556,6 +2927,18 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as dry_dir:
+        dry = start_dryrun(dry_dir)
+        try:
+            return run_phases(dry, dry_dir, t_start)
+        finally:
+            if dry.poll() is None:
+                dry.kill()
+                dry.wait()
+
+
+def run_phases(dry, dry_dir, t_start) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2603,6 +2986,14 @@ def main() -> int:
         "flash_attention", gate="float32")
     torch.cuda.empty_cache()
     train_whisper_phase(dev, card)
+    torch.cuda.empty_cache()
+    for arch, shape, batch in CELLS:
+        cell_phase(dev, card, arch, shape, batch)
+    cells_check_phase(dev, card)
+    example_serving_phase(dev, card)
+    example_train_phase(dev, card)
+    dryrun_phase(dry, dry_dir, t_start)
+    phase("total", seconds=time.perf_counter() - t_start, card=card)
 
     # each kernel's launches on the run whose path it is on: the engines'
     # for the attention kernels (the per-sequence paged decode is on no

@@ -4,7 +4,8 @@ The models call these — never the kernels or refs directly. Dispatch
 (``impl``):
 
 * ``'auto'`` (default): the CUDA kernel for CUDA tensors, the plain
-  PyTorch version for CPU tensors. Nothing else: a CUDA tensor reaches
+  PyTorch version for a tensor on any other device (the CPU, or
+  ``meta`` for the dry run's shape-only pass). A CUDA tensor reaches
   the kernel or the call raises.
 * ``'cuda'``: the kernel; raises for a tensor that is not on CUDA.
 * ``'reference'``: the plain version on any device (the oracle the
@@ -14,7 +15,7 @@ The kernels have no backward. On the training path (``attention``,
 ``ssd``) a CUDA tensor goes through a ``torch.autograd.Function`` whose
 forward launches the kernel and whose backward differentiates the plain
 version, recomputed from the saved inputs (the JAX package has no
-backward kernel either: autodiff runs through its plain forms). CPU
+backward kernel either: autodiff runs through its plain forms). Other
 tensors take the plain version, which autograd differentiates itself.
 """
 
@@ -46,7 +47,7 @@ def _use_kernel(impl: Impl, x: torch.Tensor) -> bool:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "cuda" and x.device.type != "cuda":
         raise ValueError(f"impl='cuda' needs CUDA tensors, got {x.device}")
-    return impl != "reference"
+    return impl == "cuda" or (impl == "auto" and x.device.type == "cuda")
 
 
 def _grad_of_plain(plain, inputs, needs, grad_out):
@@ -113,7 +114,7 @@ def attention(
     """Batched GQA attention, queries aligned to the end of the keys:
     the prefill and training paths' flash attention (see
     ``flash_attention.flash_attention``); differentiable."""
-    if _use_kernel(impl, q) and q.device.type != "cpu":
+    if _use_kernel(impl, q):
         return _FlashAttention.apply(q, k, v, causal, window, logit_softcap,
                                      prefix_len)
     return ref.flash_attention_chunked(
@@ -132,7 +133,7 @@ def ssd(
 ) -> torch.Tensor:
     """Mamba-2 SSD chunked scan (see ``ssd_scan.ssd_scan``);
     differentiable."""
-    if _use_kernel(impl, x) and x.device.type != "cpu":
+    if _use_kernel(impl, x):
         return _SSDScan.apply(x, a, b, c, chunk)
     return ref.ssd_chunked(x, a, b, c, chunk=chunk)
 

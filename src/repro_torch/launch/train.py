@@ -8,12 +8,14 @@ line, plus ``--device`` (default ``cuda``; ``--device cpu`` runs the
 kernels' plain versions). Random init from ``--seed`` on a generator on
 the run's device; per-layer remat on. ``--preset smoke`` runs the
 arch's reduced config, ``full`` its published widths. Checkpoint /
-restart with ``--checkpoint-dir`` and ``--resume``. The JAX launcher's
-``--compile-only`` (a TPU-mesh dry run) comes with ROADMAP.md A9. As
-there, each step's batch carries the stub frontend inputs of the vlm
-(``patches``) and the encoder-decoder (``frames``) from one
-``numpy.random.default_rng(0)`` drawn once a step
-(``data.pipeline.attach_modality_stubs``); an MoE arch's loss adds
+restart with ``--checkpoint-dir`` and ``--resume``. ``--compile-only``
+runs the arch's ``train_4k`` cell of the one-card dry run
+(``launch/dryrun.py``: the full config's step counted on the ``meta``
+device, written to ``results/dryrun``) instead of training, and prints
+its status line. As in JAX, each step's batch carries the stub
+frontend inputs of the vlm (``patches``) and the encoder-decoder
+(``frames``) from one ``numpy.random.default_rng(0)`` drawn once a
+step (``data.pipeline.attach_modality_stubs``); an MoE arch's loss adds
 ``router_aux_coef`` x its router aux loss.
 """
 
@@ -76,7 +78,16 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--compile-only", action="store_true",
+                    help="count the full config's train_4k step on the meta "
+                         "device (the one-card dry run) instead of training")
     args = ap.parse_args(argv)
+
+    if args.compile_only:
+        from .dryrun import run_cell
+        rec = run_cell(args.arch, "train_4k", out_dir="results/dryrun")
+        print(rec["status"], rec.get("roofline", rec.get("error")))
+        return 0 if rec["status"] == "ok" else 1
 
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.preset == "smoke" \

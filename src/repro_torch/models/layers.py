@@ -74,7 +74,8 @@ def run_layers(body, x, layers: "Dict | List[Dict]", *, remat: bool):
 
 
 # ---------------------------------------------------------------------------
-# init helpers (random draws on an explicit generator; float32, then cast)
+# init helpers (random draws on an explicit generator; float32, then cast;
+# on the meta device nothing is drawn: shapes and dtypes only)
 # ---------------------------------------------------------------------------
 
 def init_stacked(n: int, draw_layer) -> Dict:
@@ -106,6 +107,8 @@ def init_stacked(n: int, draw_layer) -> Dict:
 def dense_init(gen: torch.Generator, shape, fan_in: Optional[int] = None,
                dtype: torch.dtype = torch.bfloat16,
                device: "str | torch.device" = "cuda") -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = fan_in if fan_in is not None else shape[0]
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device).mul_(fan_in ** -0.5)   # one temporary
@@ -115,6 +118,8 @@ def dense_init(gen: torch.Generator, shape, fan_in: Optional[int] = None,
 def embed_init(gen: torch.Generator, shape,
                dtype: torch.dtype = torch.bfloat16,
                device: "str | torch.device" = "cuda") -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device).mul_(0.02)
     return x.to(device=device, dtype=dtype)
@@ -332,8 +337,8 @@ def attention_decode(
         k_new, ks_new = quantize_kv(k_new)
         v_new, vs_new = quantize_kv(v_new)
     slot = pos % S                                   # ring when S < max_len
-    idx = (slice(None), slot) if slot.ndim == 0 else \
-        (torch.arange(B, device=x.device), slot)
+    # an index_put with tensor indices: no host sync, and it runs on meta
+    idx = (torch.arange(B, device=x.device), slot.expand(B))
     k_cache[idx] = k_new.to(k_cache.dtype)
     v_cache[idx] = v_new.to(v_cache.dtype)
     if kv_scales is not None:

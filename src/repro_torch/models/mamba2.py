@@ -62,7 +62,8 @@ def init(cfg: ModelConfig, gen: torch.Generator,
     def zeros(width):
         return torch.zeros((L, width), dtype=wdt, device=device)
 
-    u = torch.rand((L, H), generator=gen, dtype=torch.float32,
+    u = torch.empty((L, H), **f32) if device.type == "meta" else \
+        torch.rand((L, H), generator=gen, dtype=torch.float32,
                    device=gen.device).to(device)
     dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))   # inverse softplus

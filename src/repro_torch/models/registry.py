@@ -13,6 +13,7 @@ slot-ring cache:
     logits, cache = api.prefill(cfg, params, batch, max_len=...)
     logits, cache = api.decode_step(cfg, params, cache, tokens, pos)
     cache = api.init_cache(cfg, batch_size, max_len, device=...)
+    params = abstract_params(cfg)    # the same tree on "meta"
 
 ``forward`` and ``prefill`` take a ``batch`` dict, as in JAX: the
 tokens, and the modality inputs that the adapters route to the family's
@@ -101,3 +102,11 @@ def get_api(cfg: ModelConfig) -> ModelApi:
         return _FAMILY_API[cfg.family]
     except KeyError:
         raise ValueError(f"unknown model family {cfg.family!r}") from None
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The family's params tree on the ``meta`` device: every leaf's
+    shape and dtype, nothing drawn and nothing allocated (the JAX
+    ``jax.eval_shape`` of ``init``; full-depth grok-1 is 633 GB in
+    bf16)."""
+    return get_api(cfg).init(cfg, None, device="meta")

@@ -1,10 +1,20 @@
-"""Train and serve step functions of the port.
+"""Train, prefill and serve step functions of the port.
 
-Port of the JAX package's ``models/steps.py``: ``cross_entropy``,
-``loss_fn`` and ``make_train_step`` (the trainer's unit: loss, gradients
-and one optimizer update, with per-layer remat), and ``sample_logits``
-(the serving engine's sampler). The prefill / serve steps of the JAX
-dry-run come with the multi-device work (ROADMAP.md, A9).
+Port of the JAX package's ``models/steps.py``:
+
+* ``cross_entropy``, ``loss_fn`` and ``make_train_step`` -- the
+  trainer's unit: loss, gradients and one optimizer update, with
+  per-layer remat;
+* ``sample_logits`` -- the serving engine's sampler;
+* ``make_prefill_step`` / ``make_serve_step`` -- the serving iteration
+  units: prefill the prompt / advance every active decode slot one
+  token (greedy or temperature sampling). With the train step they are
+  the units the dry run (``launch/dryrun.py``) counts on the ``meta``
+  device and ``chip_smoke.py`` runs on the card.
+
+All steps take ``batch`` dicts (tokens, labels, and the vlm ``patches``
+/ encdec ``frames``), so one dry run covers every family. A
+``torch.Generator`` takes the place of the JAX key.
 """
 
 from __future__ import annotations
@@ -99,3 +109,36 @@ def sample_logits(logits: torch.Tensor, gen: Optional[torch.Generator],
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+
+def make_prefill_step(cfg: ModelConfig, *, max_len: int, impl: str = "auto",
+                      temperature: float = 0.0) -> Callable:
+    """``prefill_step(params, batch, gen) -> (first_tokens, cache)``:
+    the family's prefill of ``batch`` into a cache of ``max_len``
+    positions, then one token per sequence sampled from the last
+    logits (``gen`` as in :func:`sample_logits`)."""
+    api = get_api(cfg)
+
+    def prefill_step(params, batch, gen):
+        logits, cache = api.prefill(cfg, params, batch, max_len=max_len,
+                                    impl=impl)
+        return sample_logits(logits, gen, temperature), cache
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, *, impl: str = "auto",
+                    temperature: float = 0.0) -> Callable:
+    """``serve_step(params, cache, tokens, pos, gen) -> (next_tokens,
+    cache)``: one new token per active sequence against the KV / SSM
+    cache, the unit of the ``decode_32k`` and ``long_500k`` cells. The
+    decode paths dispatch on their own (``impl`` is accepted for the
+    train and prefill steps' signature, as in JAX)."""
+    api = get_api(cfg)
+    del impl
+
+    def serve_step(params, cache, tokens, pos, gen):
+        logits, cache = api.decode_step(cfg, params, cache, tokens, pos)
+        return sample_logits(logits, gen, temperature), cache
+
+    return serve_step

@@ -298,6 +298,10 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.cluster, repro_torch.cluster.driver\n"
         "import repro_torch.serving.simulator, repro_torch.serving.vector_sim\n"
         "import repro_torch.obs.report, repro_torch.distributed.fault_tolerance\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.analysis\n"
+        "import repro_torch.launch.mesh, repro_torch.configs.shapes\n"
+        "import repro_torch.examples.multi_tenant_serving\n"
+        "import repro_torch.examples.train_lm\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -318,7 +322,7 @@ def test_port_sources_never_import_jax_or_repro():
     scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
                for p in files if "repro_torch" in p.parts}
     assert {"distributed", "data", "launch", "models", "kernels", "cluster",
-            "obs", "serving", "core", "workload"} <= scanned
+            "obs", "serving", "core", "workload", "examples"} <= scanned
     for path in files:
         hits = pattern.findall(path.read_text())
         assert not hits, (path, hits)
