@@ -7,9 +7,11 @@ whisper-large-v3 (slot-ring), paligemma-3b (both engines), grok-1-314b
 (both engines, depth cut to 4) and llama4-scout-17b-a16e (slot-ring,
 depth cut to 8), trains full-width mamba2-2.7b, smollm-135m and
 whisper-large-v3, runs six of the assigned (arch x shape) cells' step
-units at full width, and the port's serving and training examples, on
-one GPU, while the one-card dry run counts all 33 cells on the meta
-device in a process beside it.
+units at full width, and the port's serving and training examples,
+then runs the sharded train, serve and int8 all-reduce paths on a 1x1
+NCCL mesh, on one GPU, while the one-card dry run counts all 33 cells
+on the meta device in a process beside it (and the 16x16 dry run one
+cell a family, in another).
 
     python3 chip_smoke.py
 
@@ -100,7 +102,9 @@ first that fails:
                  of the wall time;
 7. engine_check  one full-width prefill chunk and one decode step with
                  the kernels against the same calls on the plain versions,
-                 within the plain path's own bf16-vs-float32 deviation;
+                 within the plain path's own bf16-vs-float32 deviation,
+                 and beside it, on a line ``engine_check_f32``, the same
+                 calls in float32 within the same tolerance;
 8. engine_slot   full-width smollm-135m, bf16, 24 requests through
                  DriftScheduler("sjf") and the slot-ring engine
                  (paged=False), flash-attention launches checked against
@@ -111,7 +115,8 @@ first that fails:
                  path, within its bf16-vs-float32 deviation; beside it,
                  ungated, the plain path summed over other key blocks
                  against itself (how far an equally valid order moves
-                 the logits);
+                 the logits); and ``engine_slot_check_f32``, the same
+                 calls in float32, gated within the same tolerance;
 11. cluster_pd   full-width smollm-135m, bf16, behind the cluster
                  driver's pd_disaggregated routing: one prefill and two
                  decode paged engines on the card, 24 requests under
@@ -214,9 +219,10 @@ first that fails:
 37. train_check  one step's loss, grad norm and gradients of w_x,
                  out_proj, A_log and the embedding at full width, depth
                  cut to 8 layers: the kernel path against the plain path,
-                 within the plain path's own bf16-vs-float32 deviation;
-                 beside it, ungated, the plain path at chunk 128 (the
-                 same function, summed in another order) against itself;
+                 within the plain path's own bf16-vs-float32 deviation,
+                 in bf16 and in float32 (both gated); beside it,
+                 ungated, the plain path at chunk 128 (the same function,
+                 summed in another order) against itself;
 38. train_dense  smollm-135m at full width, batch 8 x 512, 4 steps;
                  flash-attention launches exactly 2 x 30 x 4;
 39. train_dense_check  one step of it at full depth (30 layers): loss,
@@ -257,10 +263,31 @@ first that fails:
                  counted on meta, model FLOPs, the bound on the H100,
                  whether argument + output bytes fit one card); any cell
                  in error fails the run;
-46. total        the whole run's seconds.
+46. mesh_setup   a one-rank NCCL process group and the 1x1 (data, model)
+                 mesh on the card;
+47. mesh_train   full-width smollm-135m, 8 x 512, 4 AdamW steps in train
+                 mode (DTensor params, ZeRO-1 moments) through
+                 ``launch/sharded.py``: B4 through ``local_map``, 60 a
+                 step; s/step beside train_dense's; a float32 gate
+                 against the unsharded step;
+48. mesh_train_ssd  full-width mamba2-2.7b cut to 8 layers, 2 x 2,048,
+                 2 steps: B5 16 a step; the float32 gate;
+49. mesh_serve   full-width smollm-135m's prefill (2 x 4,096, B4) and
+                 serve (8 sequences, 4,096-token cache) steps in serve
+                 mode, beside the same units unsharded; float32 gate;
+50. mesh_dp_int8  make_compressed_dp_grad_fn over NCCL on smollm-135m's
+                 whole gradient tree: ms a step, int8 wire bytes, and
+                 JAX's unbiasedness bound after 50 steps;
+51. dryrun_mesh  one cell a family on the 16x16 mesh (MESH_CELLS),
+                 counted on meta DTensors over a fake process group in
+                 a process started after the engine phases: per-device
+                 FLOPs, bytes, collective bytes by kind, the bound;
+                 gated on per-device FLOPs x 256 >= the one-card count;
+52. total        the whole run's seconds.
 
-Each engine, cluster, train, cell and example phase sets every kernel's
-launch count to 0 just before it runs and reads the counts just after.
+Each engine, cluster, train, cell, example and mesh phase sets every
+kernel's launch count to 0 just before it runs and reads the counts
+just after.
 
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1698,6 +1725,7 @@ def engine_slot_check_phase(cfg, params, dev):
     kern = run("auto", None)
     n_flash = read_launches()["flash_attention"]
     plain, plain32 = run("reference", None), run("reference", torch.float32)
+    kern32 = run("auto", torch.float32)
     # the gate's resolution: the plain path again with its online softmax
     # over 16- to 128-key blocks (the same float32 function, summed in
     # another order) against the plain path; printed, not gated
@@ -1713,6 +1741,8 @@ def engine_slot_check_phase(cfg, params, dev):
              f"{cfg.n_layers}-layer prefill")
     check_logits("engine_slot_check", kern, plain, plain32,
                  plain_reordered_max_abs_logit_err=spread)
+    # ROADMAP B0: a float32 gate beside the bf16 one
+    check_logits("engine_slot_check_f32", kern, plain, plain32, kern32=kern32)
 
 
 def engine_check_phase(cfg, params, pool, pps, dev, label="engine_check",
@@ -1721,7 +1751,9 @@ def engine_check_phase(cfg, params, pool, pps, dev, label="engine_check",
     kernels against the same calls through the plain versions, each
     from a copy of ``pool`` (a PagedPool; ``pps`` pages per sequence)
     with random page tables. ``gate`` "float32" runs every path in
-    float32 as well and gates on that pair (``check_logits``). For an
+    float32 as well and gates on that pair (``check_logits``); "both"
+    keeps the bf16 gate and adds the float32 one beside it, on a line
+    ``<label>_f32`` (ROADMAP B0). For an
     MoE model the routing of the kernel and the plain path (each
     layer's top experts and kept entries) is compared too and the
     entries that differ printed (``routing_differences``): a routing
@@ -1761,7 +1793,7 @@ def engine_check_phase(cfg, params, pool, pps, dev, label="engine_check",
     kern = run("auto", False)
     launches = read_launches()
     plain, plain32 = run("reference", False), run("reference", True)
-    kern32 = run("auto", True) if gate == "float32" else None
+    kern32 = run("auto", True) if gate in ("float32", "both") else None
     torch.cuda.synchronize()
     want = {"chunked_prefill_attention": cfg.n_layers,
             "batched_paged_decode_attention": cfg.n_layers}
@@ -1775,6 +1807,11 @@ def engine_check_phase(cfg, params, pool, pps, dev, label="engine_check",
                                       routes["reference", f32])
             for name, f32 in (("bfloat16", False), ("float32", True))
             if ("auto", f32) in routes}
+    if gate == "both":
+        check_logits(label, kern, plain, plain32, **fields)
+        check_logits(f"{label}_f32", kern, plain, plain32, kern32=kern32,
+                     launches=launches)
+        return
     check_logits(label, kern, plain, plain32, kern32=kern32, **fields)
 
 
@@ -2486,7 +2523,9 @@ def train_check_phase(dev, label, spec, names, kernel, n_layers=None,
     ``gate`` is the dtype of the kernel-vs-plain comparison that must
     hold. "bfloat16" compares the two bf16 paths. "float32" runs the
     kernel path once more in float32 and compares it with the float32
-    plain path; the bf16 comparison is then printed only. That is for a
+    plain path; the bf16 comparison is then printed only. "both" gates
+    the two comparisons (ROADMAP B0: a float32 gate beside the bf16
+    one). That is for a
     model deep enough that the two bf16 paths decorrelate: one bf16 ulp
     of a kernel output changes later roundings everywhere, so the bf16
     kernel path deviates from the bf16 plain path about as much as bf16
@@ -2537,10 +2576,12 @@ def train_check_phase(dev, label, spec, names, kernel, n_layers=None,
     err = {k: max_err(kern[k], plain[k]) for k in kern}
     tol = {k: max_err(plain[k], plain32[k]) for k in kern}
     gated, extra = err, {}
-    if gate == "float32":
+    if gate in ("float32", "both"):
         kern32 = run("auto", torch.float32)
-        gated = {k: max_err(kern32[k], plain32[k]) for k in kern}
-        extra = {"max_abs_err_kernel_vs_plain_f32": gated,
+        err32 = {k: max_err(kern32[k], plain32[k]) for k in kern}
+        gated = err32 if gate == "float32" else \
+            {k: max(err[k], err32[k]) for k in kern}
+        extra = {"max_abs_err_kernel_vs_plain_f32": err32,
                  "ratio_bf16_kernel_vs_plain_to_tol":
                      {k: err[k] / tol[k] for k in kern if tol[k] > 0}}
     if reorder:
@@ -2586,7 +2627,7 @@ def train_dense_phase(dev):
     others = {k: n for k, n in launches.items() if k != "flash_attention"}
     if any(others.values()):
         fail(f"train_dense: a kernel of another path ran: {others}")
-    return launches
+    return secs
 
 
 def train_whisper_phase(dev, card):
@@ -2914,6 +2955,457 @@ def example_train_phase(dev, card):
     torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------------------
+# the sharded steps on a one-card NCCL mesh, and the mesh dry run
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_SSD = dict(arch="mamba2-2.7b", batch=2, seq=2048, steps=2,
+                      lr=3e-4, n_layers=8)
+MESH_SERVE = dict(arch="smollm-135m", prefill_batch=2, prefill_len=4096,
+                  decode_batch=8, cache_len=4096)
+DP_INT8_STEPS = 50
+# float32 gates of the sharded steps against the same step unsharded on
+# the same weights (the CPU test's, tests/test_torch_mesh.py): loss and
+# grad norm to rtol 1e-5, params after one AdamW step at lr 1e-3 within
+# 5e-5 (5% of lr), caches within atol=rtol=1e-5, tokens equal
+MESH_LOSS_RTOL = 1e-5
+MESH_PARAM_ATOL = 5e-5
+MESH_CACHE_TOL = dict(atol=1e-5, rtol=1e-5)
+GATE_OPT = dict(lr=1e-3, warmup_steps=1)
+
+
+def mesh_setup_phase(dev):
+    """A one-rank NCCL process group on an in-process store and the 1x1
+    (data, model) mesh on the card."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    probe = torch.ones(4, device=dev)
+    dist.all_reduce(probe, group=mesh.get_group("data"))
+    torch.cuda.synchronize()
+    phase("mesh_setup", backend=dist.get_backend(), world_size=1,
+          mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          device_type=mesh.device_type, seconds=time.perf_counter() - t0)
+    if probe.tolist() != [1.0] * 4:
+        fail(f"mesh_setup: all_reduce over one rank gave {probe.tolist()}")
+    return mesh
+
+
+def _leaf_err(a, b):
+    from repro_torch.distributed.optimizer import tree_leaves
+    return max(max_err(x.detach(), y.detach())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def mesh_train_gate(label, cfg, mesh, batch, dev, params_fn):
+    """One float32 AdamW step (GATE_OPT) sharded on ``mesh`` against the
+    same step unsharded, from the same params (``params_fn()``) and
+    batch: relative loss and grad-norm errors and the largest param
+    difference after the step, gated at MESH_LOSS_RTOL and
+    MESH_PARAM_ATOL."""
+    from repro_torch.distributed.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.launch import sharded
+    from repro_torch.models.steps import make_train_step
+    c32 = cfg.replace(dtype="float32")
+    opt = Optimizer(OptimizerConfig(**GATE_OPT))
+    step = make_train_step(c32, opt)
+    ref_p = _cast(params_fn(), torch.float32)
+    ref_p, _, ref_m = step(ref_p, opt.init(ref_p), batch)
+    p, st, db, _ = sharded.place_train(c32, mesh,
+                                       _cast(params_fn(), torch.float32),
+                                       opt, batch)
+    p, _, m = sharded.sharded(step, mesh)(p, st, db)
+    got = {"loss": float(sharded.full(m["loss"])),
+           "grad_norm": float(m["grad_norm"])}
+    rel = {k: abs(got[k] / float(ref_m[k]) - 1) for k in got}
+    perr = _leaf_err(sharded.full(p), ref_p)
+    del ref_p, p, st
+    torch.cuda.empty_cache()
+    gate = dict(gated_on="float32", rel_err=rel, param_max_abs_err=perr,
+                tol=dict(loss_rtol=MESH_LOSS_RTOL, param_atol=MESH_PARAM_ATOL,
+                         lr=GATE_OPT["lr"]))
+    if max(rel.values()) > MESH_LOSS_RTOL or perr > MESH_PARAM_ATOL:
+        fail(f"{label}: sharded step off the unsharded one: {gate}")
+    return gate
+
+
+def mesh_train_phase(dev, card, mesh, dense_step_s):
+    """Full-width smollm-135m on the 1x1 mesh: 4 AdamW steps at the
+    train_dense shape (8 x 512) in train mode (params and ZeRO-1 moments
+    as DTensors, sharded.place_train), B4 through ops' local_map, 60
+    launches a step; the step time over train_dense's is DTensor's host
+    cost on one card. Then the float32 gate (mesh_train_gate)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_dataset
+    from repro_torch.launch import cell_shardings as cs
+    from repro_torch.launch import sharded
+    from repro_torch.launch.train import batch_on, build
+    from repro_torch.models.steps import make_train_step
+    spec = DENSE_TRAIN
+    cfg = get_config(spec["arch"])
+    ds = make_dataset("synthetic", cfg, spec["seq"], spec["batch"])
+    init = lambda: build(cfg, steps=spec["steps"], lr=spec["lr"], seed=0,  # noqa: E731
+                         device=dev)[:2]
+    params, opt = init()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, _, policy = sharded.place_train(
+        cfg, mesh, params, opt, batch_on(cfg, ds, 0,
+                                         np.random.default_rng(0), dev))
+    step = sharded.sharded(make_train_step(cfg, opt), mesh)
+    rng = np.random.default_rng(0)
+    batches = [batch_on(cfg, ds, s, rng, dev) for s in range(DENSE_TRAIN["steps"])]
+    log = []
+    reset_launches()
+    torch.cuda.synchronize()
+    for b in batches:
+        t0 = time.perf_counter()
+        db = cs.attach(b, cs.train_batch_shardings(mesh, b))
+        params, opt_state, m = step(params, opt_state, db)
+        loss = float(sharded.full(m["loss"]))
+        log.append((loss, float(m["grad_norm"]), time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = peak_gb()
+    secs = statistics.median(t for _, _, t in log[1:])
+    want = 2 * cfg.n_layers * DENSE_TRAIN["steps"]
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+    gate = mesh_train_gate("mesh_train", cfg, mesh, batches[0], dev,
+                           lambda: init()[0])
+    phase("mesh_train", arch=cfg.name, card=card, mesh="1x1",
+          n_layers=cfg.n_layers, batch=DENSE_TRAIN["batch"],
+          seq=DENSE_TRAIN["seq"], param_policy=policy,
+          loss=[l for l, _, _ in log], grad_norm=[g for _, g, _ in log],
+          step_s=[t for _, _, t in log], median_step_s=secs,
+          tokens_per_s=DENSE_TRAIN["batch"] * DENSE_TRAIN["seq"] / secs,
+          peak_gib=peak, train_dense_step_s=dense_step_s,
+          step_over_train_dense=secs / dense_step_s, launches=launches,
+          flash_per_step=launches["flash_attention"] / DENSE_TRAIN["steps"],
+          flash_launches_expected=want, **gate)
+    if not all(math.isfinite(l) and math.isfinite(g) for l, g, _ in log):
+        fail(f"mesh_train: a loss or grad norm is not finite: {log}")
+    if launches["flash_attention"] != want or \
+            any(n for k, n in launches.items() if k != "flash_attention"):
+        fail(f"mesh_train: launches {launches}, want {want} flash launches")
+
+
+def mesh_train_ssd_phase(dev, card, mesh):
+    """Full-width mamba2-2.7b, depth cut to 8 layers (time), on the 1x1
+    mesh: 2 AdamW steps at 2 x 2,048 in train mode, B5 through ops'
+    local_map, 16 calls a step (forward and remat recompute); then the
+    float32 gate at the same depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_dataset
+    from repro_torch.distributed.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.launch import cell_shardings as cs
+    from repro_torch.launch import sharded
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.registry import get_api
+    from repro_torch.models.steps import make_train_step
+    spec = MESH_TRAIN_SSD
+    full = get_config(spec["arch"])
+    cfg = full.replace(n_layers=spec["n_layers"])
+
+    def init():
+        return get_api(cfg).init(cfg, torch.Generator(device=dev).manual_seed(0),
+                                 device=dev)
+
+    ds = make_dataset("synthetic", cfg, spec["seq"], spec["batch"])
+    rng = np.random.default_rng(0)
+    batches = [batch_on(cfg, ds, s, rng, dev) for s in range(spec["steps"])]
+    opt = Optimizer(OptimizerConfig(lr=spec["lr"], warmup_steps=10))
+    torch.cuda.reset_peak_memory_stats()
+    params, state, _, policy = sharded.place_train(cfg, mesh, init(), opt,
+                                                   batches[0])
+    step = sharded.sharded(make_train_step(cfg, opt), mesh)
+    log = []
+    reset_launches()
+    torch.cuda.synchronize()
+    for b in batches:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state,
+                                cs.attach(b, cs.train_batch_shardings(mesh, b)))
+        log.append((float(sharded.full(m["loss"])), float(m["grad_norm"]),
+                    time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = peak_gb()
+    del params, state, step
+    torch.cuda.empty_cache()
+    gate = mesh_train_gate("mesh_train_ssd", cfg, mesh, batches[0], dev, init)
+    want = 2 * cfg.n_layers * spec["steps"]
+    phase("mesh_train_ssd", arch=cfg.name, card=card, mesh="1x1",
+          n_layers=cfg.n_layers, reduced=dict(n_layers=[full.n_layers,
+                                                        cfg.n_layers]),
+          batch=spec["batch"], seq=spec["seq"], param_policy=policy,
+          loss=[l for l, _, _ in log], grad_norm=[g for _, g, _ in log],
+          step_s=[t for _, _, t in log],
+          tokens_per_s=spec["batch"] * spec["seq"] / log[-1][2],
+          peak_gib=peak, launches=launches,
+          ssd_per_step=launches["ssd_scan"] / spec["steps"],
+          ssd_launches_expected=want, **gate)
+    if not all(math.isfinite(l) and math.isfinite(g) for l, g, _ in log):
+        fail(f"mesh_train_ssd: a loss or grad norm is not finite: {log}")
+    if launches["ssd_scan"] != want or \
+            any(n for k, n in launches.items() if k != "ssd_scan"):
+        fail(f"mesh_train_ssd: launches {launches}, want {want} SSD calls")
+
+
+def mesh_serve_phase(dev, card, mesh):
+    """Full-width smollm-135m's serving units on the 1x1 mesh in serve
+    mode: make_prefill_step at 2 x 4,096 (B4, 30 launches) and
+    make_serve_step for 8 sequences over a 4,096-token cache placed by
+    cache_shardings, each timed (CUDA events, median of 3 after a
+    warm-up) beside the same units unsharded; then both in float32
+    against the unsharded units: tokens equal, caches within
+    MESH_CACHE_TOL."""
+    from repro_torch.distributed.optimizer import tree_leaves
+    from repro_torch.launch import sharded
+    from repro_torch.models.registry import get_api
+    from repro_torch.models.steps import make_prefill_step, make_serve_step
+    spec = MESH_SERVE
+    cfg, params, fields = init_on_card(spec["arch"], dev, card, CELL_SEED)
+    gen = torch.Generator(device=dev).manual_seed(CELL_SEED + 2)
+    L = spec["prefill_len"]
+    batch = {"tokens": torch.randint(0, cfg.vocab, (spec["prefill_batch"], L),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    S, B = spec["cache_len"], spec["decode_batch"]
+    cache = get_api(cfg).init_cache(cfg, B, S, device=dev)
+    for t in cache.values():
+        if t.is_floating_point():
+            t.normal_(generator=gen)
+    cache["lens"].fill_(S - 1)
+    tokens = torch.randint(0, cfg.vocab, (B,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    pos = torch.tensor(S - 1, dtype=torch.int32, device=dev)
+
+    def units(c, p, cache_in):
+        prefill = make_prefill_step(c, max_len=L)
+        serve = make_serve_step(c)
+        dp, db, policy = sharded.place_prefill(c, mesh, p, batch)
+        dparams, dcache, dtok, _ = sharded.place_decode(c, mesh, p, cache_in,
+                                                        tokens)
+        return (sharded.sharded(lambda: prefill(dp, db, None), mesh),
+                sharded.sharded(lambda: serve(dparams, dcache, dtok, pos, None),
+                                mesh), policy)
+
+    def median_ms(run):
+        run()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+        return statistics.median(ts)
+
+    run_prefill, run_serve, policy = units(cfg, params, cache)
+    reset_launches()
+    times = {"prefill": median_ms(run_prefill), "decode": median_ms(run_serve)}
+    launches = read_launches()
+    # the same units unsharded: DTensor's host cost on one card
+    plain_prefill, plain_serve = make_prefill_step(cfg, max_len=L), \
+        make_serve_step(cfg)
+    plain_cache = {k: v.clone() for k, v in cache.items()}
+    unsharded = {
+        "prefill": median_ms(lambda: plain_prefill(params, batch, None)),
+        "decode": median_ms(lambda: plain_serve(params, plain_cache, tokens,
+                                                pos, None))}
+    del plain_cache
+    # the float32 gate: sharded against unsharded units, same inputs
+    c32, p32 = cfg.replace(dtype="float32"), _cast(params, torch.float32)
+    del params
+    c32_cache = {k: (v.float() if v.is_floating_point() else v).clone()
+                 for k, v in cache.items()}
+    sp, ss, _ = units(c32, p32, {k: v.clone() for k, v in c32_cache.items()})
+    tok_s, cache_s = sp()
+    ntok_s, ncache_s = ss()
+    tok_u, cache_u = make_prefill_step(c32, max_len=L)(p32, batch, None)
+    ntok_u, ncache_u = make_serve_step(c32)(p32, c32_cache, tokens, pos, None)
+    cache_s, ncache_s = sharded.full(cache_s), sharded.full(ncache_s)
+    errs = {"prefill_cache": max(max_err(a, b) for a, b in
+                                 zip(tree_leaves(cache_s),
+                                     tree_leaves(cache_u))),
+            "decode_cache": max(max_err(a, b) for a, b in
+                                zip(tree_leaves(ncache_s),
+                                    tree_leaves(ncache_u)))}
+    same = {"prefill_tokens": bool(torch.equal(sharded.full(tok_s), tok_u)),
+            "decode_tokens": bool(torch.equal(sharded.full(ntok_s), ntok_u))}
+    close = all(torch.allclose(a.double(), b.double(), **MESH_CACHE_TOL)
+                for x, y in ((cache_s, cache_u), (ncache_s, ncache_u))
+                for a, b in zip(tree_leaves(x), tree_leaves(y)))
+    phase("mesh_serve", arch=cfg.name, mesh="1x1", param_policy=policy,
+          **fields, prefill_batch=spec["prefill_batch"], prefill_len=L,
+          decode_batch=B, cache_len=S, prefill_ms=times["prefill"],
+          decode_ms=times["decode"], unsharded_ms=unsharded,
+          over_unsharded={k: times[k] / unsharded[k] for k in times},
+          prefill_tokens_per_s=spec["prefill_batch"] * L / times["prefill"] * 1e3,
+          decode_tokens_per_s=B / times["decode"] * 1e3,
+          launches=launches,
+          flash_per_prefill=launches["flash_attention"] / 4,
+          gated_on="float32", tokens_equal=same, max_abs_err=errs,
+          tol=MESH_CACHE_TOL, peak_gib=peak_gb())
+    if launches["flash_attention"] != 4 * cfg.n_layers or \
+            any(n for k, n in launches.items() if k != "flash_attention"):
+        fail(f"mesh_serve: launches {launches}, want {cfg.n_layers} flash "
+             f"launches a prefill over 4 prefills")
+    if not all(same.values()) or not close:
+        fail(f"mesh_serve: sharded units off the unsharded ones: {same} "
+             f"{errs}")
+    del p32, cache, c32_cache
+    torch.cuda.empty_cache()
+
+
+def mesh_dp_int8_phase(dev, card, mesh):
+    """make_compressed_dp_grad_fn over NCCL (the 1x1 mesh's data group)
+    on full-width smollm-135m's whole gradient tree (2 x 128 tokens):
+    ms a step (gradients plus the compressed all-reduce) and of the
+    compressed all-reduce alone, and the bytes the algorithm puts on the
+    wire a step (int8 values plus one float32 scale a leaf). Gate
+    (float32): JAX's unbiasedness bound -- over DP_INT8_STEPS steps of
+    the same gradient with the error carried, the summed reduced
+    gradients are within 1% (relative to the largest entry) of
+    DP_INT8_STEPS times the gradient, for every leaf."""
+    from repro_torch.distributed.optimizer import (
+        compressed_psum, make_compressed_dp_grad_fn, tree_leaves, tree_map)
+    from repro_torch.models.steps import grads_of, loss_fn
+    cfg, params, fields = init_on_card("smollm-135m", dev, card, CELL_SEED)
+    gen = torch.Generator(device=dev).manual_seed(CELL_SEED + 3)
+    toks = torch.randint(0, cfg.vocab, (2, 129), generator=gen, device=dev,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    group = mesh.get_group("data")
+    lossf = lambda p, b: loss_fn(cfg, p, b)[0]  # noqa: E731
+    grad_fn = make_compressed_dp_grad_fn(lossf, group)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    g = grads_of(lossf(params, batch), params)
+    g32 = [t.detach().float() for t in tree_leaves(g)]
+    err = [torch.zeros_like(t) for t in g32]
+    total = [torch.zeros_like(t) for t in g32]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_INT8_STEPS):
+        for i, a in enumerate(g32):
+            red, err[i] = compressed_psum(a, err[i], group)
+            total[i].add_(red)
+    torch.cuda.synchronize()
+    psum_ms = 1e3 * (time.perf_counter() - t0) / DP_INT8_STEPS
+    rel = max(float((t - DP_INT8_STEPS * a).abs().max()
+                    / (DP_INT8_STEPS * a).abs().max().clamp_min(1e-30))
+              for t, a in zip(total, g32))
+    # the grad fn itself: gradients and the compressed all-reduce a step
+    e2 = tree_map(lambda t: torch.zeros_like(t, dtype=torch.float32), g)
+    grad_fn(params, batch, e2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        _, e2 = grad_fn(params, batch, e2)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 3
+    leaves = g32
+    wire = sum(t.numel() + 4 for t in leaves)
+    phase("mesh_dp_int8", arch=cfg.name, mesh="1x1", group="data", **fields,
+          steps=DP_INT8_STEPS, leaves=len(leaves),
+          grad_elems=sum(t.numel() for t in leaves),
+          wire_bytes_per_step=wire,
+          float32_bytes_per_step=4 * sum(t.numel() for t in leaves),
+          psum_ms_per_step=psum_ms, grad_fn_ms_per_step=step_ms,
+          gated_on="float32", rel_err_after_steps=rel, tol=0.01)
+    if not rel < 0.01:
+        fail(f"mesh_dp_int8: relative error {rel} after {DP_INT8_STEPS} "
+             "steps, want < 0.01")
+    del params, g, g32, err, total, e2
+    torch.cuda.empty_cache()
+
+
+# One cell of each family on 16x16: both meshes' full sweep takes 21
+# minutes of one CPU core (PERF.md), so chip_smoke runs one cell
+# a family, covering the three step kinds and the param policies, and
+# PERF.md records the full sweep from the CLI
+MESH_CELLS = (("smollm-135m", "train_4k"), ("grok-1-314b", "decode_32k"),
+              ("paligemma-3b", "prefill_32k"),
+              ("whisper-large-v3", "train_4k"),
+              ("mamba2-2.7b", "long_500k"), ("zamba2-1.2b", "train_4k"))
+
+
+def start_dryrun_mesh(out_dir):
+    """The mesh half of the dry run on 16x16 for MESH_CELLS (the dry
+    run's ``run_cell(..., multi_pod=False)``, as ``python -m
+    repro_torch.launch.dryrun --mesh single`` runs it), on meta DTensors
+    over a fake process group of 256 ranks, in a process of its own
+    beside the card's phases; ``dryrun_mesh_phase`` reads its
+    records."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    code = ("import sys\n"
+            "from repro_torch.launch.dryrun import run_cell, status_line\n"
+            f"for arch, shape in {MESH_CELLS!r}:\n"
+            f"    rec = run_cell(arch, shape, out_dir={out_dir!r}, force=True,"
+            " multi_pod=False)\n"
+            "    print(status_line(rec), flush=True)\n")
+    return subprocess.Popen(
+        [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_mesh_phase(proc, out_dir, card_dir, t_start):
+    """One line per cell of the 16x16 dry run: per-device FLOPs, bytes,
+    collective bytes by kind and the bound. Gate against the unsharded
+    count: each ok cell's per-device FLOPs times its 256 devices are at
+    least the one-card count of the same cell (the ``dryrun`` records:
+    sharding may replicate work, never drop it). Fails on a cell in
+    error or missing."""
+    log, _ = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t_start
+    recs = [json.loads(p.read_text())
+            for p in sorted(Path(out_dir).glob("*.json"))]
+    card = {(r["arch"], r["shape"]): r for r in
+            (json.loads(p.read_text()) for p in Path(card_dir).glob("*.json"))
+            if r["status"] == "ok"}
+    status, short = {}, []
+    for r in recs:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+        if r["status"] != "ok":
+            phase("dryrun_mesh", arch=r["arch"], shape=r["shape"],
+                  status=r["status"], reason=r.get("reason", r.get("error")))
+            continue
+        rf = r["roofline"]
+        one = card.get((r["arch"], r["shape"]))
+        total = r["cost_analysis"]["flops"] * r["n_chips"]
+        if one is None or total < one["cost_analysis"]["flops"]:
+            short.append((r["arch"], r["shape"]))
+        phase("dryrun_mesh", arch=r["arch"], shape=r["shape"], status="ok",
+              mesh=r["mesh"], n_chips=r["n_chips"],
+              param_policy=r["param_policy"],
+              flops_per_dev=r["cost_analysis"]["flops"],
+              bytes_per_dev=r["cost_analysis"]["bytes accessed"],
+              flops_all_devs_over_one_card=(
+                  total / one["cost_analysis"]["flops"] if one else None),
+              collective_bytes=r["collective_bytes"],
+              collective_ops=r["collective_ops"],
+              bound_s=rf["step_time_lower_bound_s"],
+              bottleneck=rf["bottleneck"], count_s=r["run_s"])
+    phase("dryrun_mesh", cells=len(recs), status=status,
+          seconds_from_start=wall)
+    if proc.returncode != 0 or status.get("ok") != len(MESH_CELLS) or short:
+        fail(f"dryrun_mesh: exit {proc.returncode}, {status} of {len(recs)} "
+             f"records, want {want} ok; below the one-card count: {short}:\n"
+             f"{log[-3000:]}")
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -2927,18 +3419,24 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    import torch.distributed as dist
     t_start = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="dryrun_") as dry_dir:
-        dry = start_dryrun(dry_dir)
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as dry_dir, \
+            tempfile.TemporaryDirectory(prefix="dryrun_mesh_") as mesh_dir:
+        procs.append(start_dryrun(dry_dir))
         try:
-            return run_phases(dry, dry_dir, t_start)
+            return run_phases(procs, dry_dir, mesh_dir, t_start)
         finally:
-            if dry.poll() is None:
-                dry.kill()
-                dry.wait()
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
 
-def run_phases(dry, dry_dir, t_start) -> int:
+def run_phases(procs, dry_dir, dry_mesh_dir, t_start) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2949,7 +3447,8 @@ def run_phases(dry, dry_dir, t_start) -> int:
     cfg, params, eng, paged_launches = engine_phase(dev)
     engine_profile_phase(cfg, params, dev, "engine_profile", PAGED_ENGINE,
                          shared_prefix_tokens=64)
-    engine_check_phase(cfg, params, eng.pool, eng.alloc.pages_per_seq, dev)
+    engine_check_phase(cfg, params, eng.pool, eng.alloc.pages_per_seq, dev,
+                       gate="both")
     del eng
     slot_launches = engine_slot_phase(cfg, params, dev)
     engine_profile_phase(cfg, params, dev, "engine_slot_profile", SLOT_ENGINE)
@@ -2966,6 +3465,8 @@ def run_phases(dry, dry_dir, t_start) -> int:
     engine_paligemma_phases(dev, card)
     engine_grok_phases(dev, card)
     engine_llama4_phases(dev, card)
+    # the mesh dry run starts after the host-bound engine phases
+    procs.append(start_dryrun_mesh(dry_mesh_dir))
 
     train_cfg, setup = train_phase(dev)
     train_launches = read_launches()
@@ -2976,9 +3477,10 @@ def run_phases(dry, dry_dir, t_start) -> int:
         "w_x": ("layers", "ssm", "w_x"),
         "out_proj": ("layers", "ssm", "out_proj"),
         "A_log": ("layers", "ssm", "A_log"), "embed": ("embed", "table")},
-        "ssd_scan", n_layers=TRAIN_CHECK_LAYERS, reorder={"ssm_chunk": 128})
+        "ssd_scan", n_layers=TRAIN_CHECK_LAYERS, reorder={"ssm_chunk": 128},
+        gate="both")
     torch.cuda.empty_cache()
-    train_dense_phase(dev)
+    dense_step_s = train_dense_phase(dev)
     torch.cuda.empty_cache()
     train_check_phase(dev, "train_dense_check", DENSE_TRAIN, {
         "wq": ("layers", "attn", "wq"), "wk": ("layers", "attn", "wk"),
@@ -2992,7 +3494,13 @@ def run_phases(dry, dry_dir, t_start) -> int:
     cells_check_phase(dev, card)
     example_serving_phase(dev, card)
     example_train_phase(dev, card)
-    dryrun_phase(dry, dry_dir, t_start)
+    mesh = mesh_setup_phase(dev)
+    mesh_train_phase(dev, card, mesh, dense_step_s)
+    mesh_train_ssd_phase(dev, card, mesh)
+    mesh_serve_phase(dev, card, mesh)
+    mesh_dp_int8_phase(dev, card, mesh)
+    dryrun_phase(procs[0], dry_dir, t_start)
+    dryrun_mesh_phase(procs[1], dry_mesh_dir, dry_dir, t_start)
     phase("total", seconds=time.perf_counter() - t_start, card=card)
 
     # each kernel's launches on the run whose path it is on: the engines'

@@ -2,12 +2,14 @@
 
 The tests run both packages on the same weights: they build params with
 the JAX ``init`` of a family, turn every leaf into a numpy array
-(``np.asarray``) and hand the tree here. This module imports no JAX.
+(``np.asarray``) and hand the tree here. :func:`params_on_mesh` places
+such a tree on a mesh as DTensors by a cell's shardings. This module
+imports no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,3 +48,15 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict,
         return tensor_from_numpy(node, device, dtype)
 
     return convert(tree)
+
+
+def params_on_mesh(cfg: ModelConfig, params: Dict, mesh, *,
+                   mode: str = "train") -> Tuple[Dict, str]:
+    """(``params`` as DTensors on ``mesh``, the policy) by
+    ``launch/cell_shardings.params_shardings_for(..., mode=mode)``:
+    every rank passes the same full tree (from
+    :func:`params_from_numpy`, on the mesh's device) and keeps its
+    shards."""
+    from .launch import cell_shardings as cs
+    shardings, policy = cs.params_shardings_for(cfg, mesh, params, mode=mode)
+    return cs.attach(params, shardings), policy

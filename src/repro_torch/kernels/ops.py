@@ -11,6 +11,14 @@ The models call these — never the kernels or refs directly. Dispatch
 * ``'reference'``: the plain version on any device (the oracle the
   kernels are held against on the card).
 
+On a mesh (``distributed/sharding.py``) the training path's inputs are
+DTensors: ``attention`` and ``ssd`` take them through ``local_map``
+before any device dispatch, so the kernel (or, on the CPU and ``meta``,
+its plain version) sees each rank's local tensors only -- its batch
+rows and its heads, whole sequences -- and the result is a DTensor
+again. A kv head (B/C group) shared by q heads (x heads) of several
+ranks stays replicated and each rank takes the ones its heads read.
+
 The kernels have no backward. On the training path (``attention``,
 ``ssd``) a CUDA tensor goes through a ``torch.autograd.Function`` whose
 forward launches the kernel and whose backward differentiates the plain
@@ -21,9 +29,12 @@ tensors take the plain version, which autograd differentiates itself.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from . import ref
 from .chunked_prefill import chunked_prefill_attention as _chunked_prefill_cuda
@@ -100,6 +111,113 @@ class _SSDScan(torch.autograd.Function):
         return (*grads, None)
 
 
+def _head_plan(x: DTensor, head_dim: int, n_groups: int
+               ) -> Tuple[list, list, list, list]:
+    """Placements of a head-sharded call on ``x``'s mesh: (``x``'s,
+    keeping its Shard of dim 0 and of ``head_dim`` and replicating the
+    rest; the grouped operands' (kv heads or B/C groups, ``n_groups`` of
+    them, on the same dim), sharded with the heads when ``n_groups``
+    splits as evenly, else replicated; the grouped operands' gradient
+    placements, ``Partial`` where they are replicated over a head-split
+    mesh dim; the mesh dims that split the heads)."""
+    mesh = x.device_mesh
+    x_pl, split = [], []
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim in (0, head_dim):
+            x_pl.append(pl)
+            split += [i] if pl.dim == head_dim else []
+        else:
+            x_pl.append(Replicate())
+    n = math.prod(mesh.size(i) for i in split)
+    even = n_groups % n == 0
+    g_pl = [Replicate() if i in split and not even else pl
+            for i, pl in enumerate(x_pl)]
+    g_grad = [Partial() if i in split and not even else pl
+              for i, pl in enumerate(x_pl)]
+    return x_pl, g_pl, g_grad, split
+
+
+def _local_groups(mesh, split: Sequence[int], n_heads: int, n_local: int,
+                  n_groups: int, grouped: Sequence[torch.Tensor],
+                  dim: int) -> list:
+    """Each of ``grouped`` (all ``n_groups`` groups on ``dim``) cut to
+    the groups of this rank's ``n_local`` heads, heads numbered as the
+    mesh dims ``split`` split them. The kernels map local head ``j`` to
+    group ``j // (n_local / local groups)``: that holds when the local
+    heads fill whole groups or lie inside one; other splits raise."""
+    if not split or n_local == n_heads or grouped[0].shape[dim] < n_groups:
+        return list(grouped)          # unsplit, or split with the heads
+    r = 0
+    for i in split:
+        r = r * mesh.size(i) + mesh.get_local_rank(i)
+    size = n_heads // n_groups                   # heads per group
+    h0 = r * n_local
+    if not (n_local % size == 0 or size % n_local == 0):
+        raise ValueError(f"{n_local} local heads of {n_heads} split the "
+                         f"{n_groups} groups unevenly")
+    g0, g1 = h0 // size, (h0 + n_local - 1) // size + 1
+    return [t.narrow(dim, g0, g1 - g0) for t in grouped]
+
+
+def _on_mesh(t: torch.Tensor, mesh) -> DTensor:
+    """``t`` as a DTensor: a plain tensor (lengths, positions the model
+    made) replicated on ``mesh``."""
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous. A local
+    gradient from ``local_map`` keeps the layout the plain backward gave
+    it (einsum's permutations), and DTensor then runs the global
+    reshapes after it as local ``view`` s, which a permuted tensor
+    refuses."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _attention_mesh(q, k, v, kw, impl):
+    H, Hk = q.shape[2], k.shape[2]
+    mesh = q.device_mesh
+    q_pl, kv_pl, kv_grad, split = _head_plan(q, 2, Hk)
+
+    def local(ql, kl, vl):
+        ql, kl, vl = (_ContiguousGrad.apply(t) for t in (ql, kl, vl))
+        kl, vl = _local_groups(mesh, split, H, ql.shape[2], Hk, (kl, vl), 2)
+        return attention(ql, kl, vl, impl=impl, **kw).contiguous()
+
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        *(_on_mesh(t, mesh) for t in (q, k, v)))
+
+
+def _ssd_mesh(x, a, b, c, chunk, impl):
+    H, G = x.shape[2], b.shape[2]
+    mesh = x.device_mesh
+    x_pl, g_pl, g_grad, split = _head_plan(x, 2, G)
+
+    def local(xl, al, bl, cl):
+        xl, al, bl, cl = (_ContiguousGrad.apply(t) for t in (xl, al, bl, cl))
+        bl, cl = _local_groups(mesh, split, H, xl.shape[2], G, (bl, cl), 2)
+        return ssd(xl, al, bl, cl, chunk=chunk, impl=impl).contiguous()
+
+    return local_map(local, out_placements=x_pl,
+                     in_placements=(x_pl, x_pl, g_pl, g_pl),
+                     in_grad_placements=(x_pl, x_pl, g_grad, g_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        *(_on_mesh(t, mesh) for t in (x, a, b, c)))
+
+
 def attention(
     q: torch.Tensor,            # [B, Lq, H, D]
     k: torch.Tensor,            # [B, Lk, Hk, D]
@@ -113,7 +231,13 @@ def attention(
 ) -> torch.Tensor:
     """Batched GQA attention, queries aligned to the end of the keys:
     the prefill and training paths' flash attention (see
-    ``flash_attention.flash_attention``); differentiable."""
+    ``flash_attention.flash_attention``); differentiable. DTensor
+    inputs go through ``local_map`` (module doc)."""
+    if isinstance(q, DTensor):
+        return _attention_mesh(
+            q, k, v, dict(causal=causal, window=window,
+                          logit_softcap=logit_softcap,
+                          prefix_len=prefix_len), impl)
     if _use_kernel(impl, q):
         return _FlashAttention.apply(q, k, v, causal, window, logit_softcap,
                                      prefix_len)
@@ -132,7 +256,10 @@ def ssd(
     impl: Impl = "auto",
 ) -> torch.Tensor:
     """Mamba-2 SSD chunked scan (see ``ssd_scan.ssd_scan``);
-    differentiable."""
+    differentiable. DTensor inputs go through ``local_map`` (module
+    doc)."""
+    if isinstance(x, DTensor):
+        return _ssd_mesh(x, a, b, c, chunk, impl)
     if _use_kernel(impl, x):
         return _SSDScan.apply(x, a, b, c, chunk)
     return ref.ssd_chunked(x, a, b, c, chunk=chunk)
@@ -149,7 +276,29 @@ def decode_attention(
 ) -> torch.Tensor:
     """Single-token decode against a contiguous per-sequence cache.
     Plain PyTorch on every device: the JAX package has no Pallas kernel
-    for it either (a memory-bound gather and GEMV)."""
+    for it either (a memory-bound gather and GEMV). On a mesh whose
+    cache keeps S whole, each rank attends its batch rows' heads
+    (``local_map``, as ``attention``); a cache split on S (kv heads that
+    do not divide the model axis) runs the plain ops on DTensors, which
+    reduce the softmax over S across the ranks."""
+    seq_split = isinstance(k_cache, DTensor) and any(
+        isinstance(pl, Shard) and pl.dim == 1 for pl in k_cache.placements)
+    if isinstance(q, DTensor) and not seq_split:
+        H, Hk = q.shape[1], k_cache.shape[2]
+        mesh = q.device_mesh
+        q_pl, kv_pl, _, split = _head_plan(q, 1, Hk)
+        kv_pl = [Shard(2) if pl == Shard(1) else pl for pl in kv_pl]
+        len_pl = [pl if pl == Shard(0) else Replicate() for pl in q_pl]
+
+        def local(ql, kl, vl, nl):
+            kl, vl = _local_groups(mesh, split, H, ql.shape[1], Hk, (kl, vl), 2)
+            return ref.decode_attention_ref(ql, kl, vl, nl, window=window,
+                                            logit_softcap=logit_softcap)
+
+        return local_map(local, out_placements=q_pl,
+                         in_placements=(q_pl, kv_pl, kv_pl, len_pl),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            *(_on_mesh(t, mesh) for t in (q, k_cache, v_cache, cache_len)))
     return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
                                     window=window,
                                     logit_softcap=logit_softcap)
@@ -233,5 +382,43 @@ def ssm_decode_step(h: torch.Tensor, x_t: torch.Tensor, a_t: torch.Tensor,
     """Single-token SSM state update (the Mamba-2 decode step): (y, the
     new float32 state). Plain PyTorch on every device, as the JAX
     package's ``ops.ssm_decode_step`` calls its plain form on every
-    backend: no TPU kernel computes it."""
+    backend: no TPU kernel computes it. On a mesh each rank updates its
+    batch rows' heads (``local_map``, as ``ssd``)."""
+    if isinstance(x_t, DTensor):
+        H, G = x_t.shape[1], b_t.shape[1]
+        mesh = x_t.device_mesh
+        x_pl, g_pl, _, split = _head_plan(x_t, 1, G)
+
+        def local(hl, xl, al, bl, cl):
+            bl, cl = _local_groups(mesh, split, H, xl.shape[1], G, (bl, cl), 1)
+            return ref.ssm_decode_step_ref(hl, xl, al, bl, cl)
+
+        return local_map(local, out_placements=(x_pl, x_pl),
+                         in_placements=(x_pl, x_pl, x_pl, g_pl, g_pl),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            *(_on_mesh(t, mesh) for t in (h, x_t, a_t, b_t, c_t)))
     return ref.ssm_decode_step_ref(h, x_t, a_t, b_t, c_t)
+
+
+def ssd_with_state(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, *, chunk: int = 256):
+    """The SSD scan and its final state [B, H, P, N] (float32): the
+    plain ``ref.ssd_chunked(..., return_final_state=True)`` on every
+    device, as the serving prefill runs it (no kernel gives the state:
+    ROADMAP B item 6). On a mesh through ``local_map``, as ``ssd``."""
+    if isinstance(x, DTensor):
+        H, G = x.shape[2], b.shape[2]
+        mesh = x.device_mesh
+        x_pl, g_pl, _, split = _head_plan(x, 2, G)
+        state_pl = [Shard(1) if pl == Shard(2) else pl for pl in x_pl]
+
+        def local(xl, al, bl, cl):
+            bl, cl = _local_groups(mesh, split, H, xl.shape[2], G, (bl, cl), 2)
+            return ref.ssd_chunked(xl, al, bl, cl, chunk=chunk,
+                                   return_final_state=True)
+
+        return local_map(local, out_placements=(x_pl, state_pl),
+                         in_placements=(x_pl, x_pl, g_pl, g_pl),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            *(_on_mesh(t, mesh) for t in (x, a, b, c)))
+    return ref.ssd_chunked(x, a, b, c, chunk=chunk, return_final_state=True)

@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from ..distributed import sharding as shd
+
 
 def _gather_pages(pages: torch.Tensor, page_table: torch.Tensor
                   ) -> torch.Tensor:
@@ -144,7 +146,9 @@ def decode_attention_ref(
     B, S, Hk, D = k_cache.shape
     H = q.shape[1]
     group = H // Hk
-    qf = (q.float() * (D ** -0.5)).reshape(B, Hk, group, D)
+    # on a mesh (a cache split on S: ops.decode_attention) q's heads may
+    # be split finer than the kv heads; these views then gather them
+    qf = shd.unflatten(q.float() * (D ** -0.5), 1, (Hk, group))
     s = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float())
     if logit_softcap is not None:
         s = logit_softcap * torch.tanh(s / logit_softcap)
@@ -159,7 +163,7 @@ def decode_attention_ref(
     l = e.sum(dim=-1, keepdim=True)
     p = e / torch.where(l == 0.0, torch.ones_like(l), l)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
-    return out.reshape(B, H, D).to(q.dtype)
+    return shd.flatten(out, 1, 2).to(q.dtype)
 
 
 def paged_decode_attention_ref(

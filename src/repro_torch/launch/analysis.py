@@ -1,8 +1,9 @@
 """Roofline analysis of one step counted on the ``meta`` device.
 
-Port of the JAX package's ``launch/analysis.py`` for one card. JAX reads
-a compiled step's ``cost_analysis()``; the port counts one run of the
-step on meta tensors instead (:func:`cost_analysis`):
+Port of the JAX package's ``launch/analysis.py``. JAX reads a compiled
+step's ``cost_analysis()`` and parses its HLO for collectives; the port
+counts one run of the step on meta tensors instead -- on one card with
+:func:`cost_analysis`, on a mesh with :func:`mesh_cost_analysis`:
 
 * ``flops``: the matrix products' FLOPs
   (``torch.utils.flop_counter.FlopCounterMode``); elementwise work is
@@ -15,7 +16,19 @@ The count is the work of the plain form that runs on meta, not of the
 kernel that runs on the card: ``ref.flash_attention_chunked`` computes
 every 512-key block, masked ones included, and the remat recompute of a
 train step is counted as run. The collective term is 0 on one card
-(``coll={"total": 0}``); the collective parsers come with the mesh.
+(``coll={"total": 0}``).
+
+On a mesh the step runs on meta DTensors over the fake process group
+(``mesh.open_fake_group``). :class:`MeshCounter` lets DTensor desugar
+each op into its local ops and collectives (it returns ``NotImplemented``
+for a DTensor op, as ``CommDebugMode`` does) and counts those, so FLOPs
+and bytes are one device's, of its local shards (DTensor's own shape
+propagation, which runs ops on fake tensors of the global shapes, is not
+counted). Every
+``_c10d_functional`` collective is recorded with its kind and result
+bytes (JAX's convention: the result of each collective, per device);
+:func:`parse_collective_bytes` and :func:`count_collective_ops` sum the
+record under JAX's keys.
 
 Roofline terms (seconds), per the constants in ``mesh.HW``:
 
@@ -29,9 +42,11 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from ..models.config import ModelConfig
 from .mesh import HW
@@ -46,6 +61,14 @@ def tensor_bytes(tree) -> int:
     """Bytes of every tensor leaf of ``tree`` (numel x element size)."""
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
                if isinstance(t, torch.Tensor))
+
+
+def local_tensor_bytes(tree) -> int:
+    """:func:`tensor_bytes` of one device: a DTensor leaf counts its
+    local shard."""
+    return sum(t.to_local().numel() * t.element_size()
+               if isinstance(t, DTensor) else t.numel() * t.element_size()
+               for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
 class ByteCounter(TorchDispatchMode):
@@ -71,6 +94,88 @@ def cost_analysis(fn: Callable, *args) -> Tuple[Dict[str, float], object]:
         out = fn(*args)
     return {"flops": float(flops.get_total_flops()),
             "bytes accessed": float(nbytes.bytes)}, out
+
+
+_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter",
+                "all-to-all", "collective-permute")
+# collective op names by JAX kind: the functional collectives
+# (``_c10d_functional``, ``_c10d_functional_autograd``) and DTensor's own
+# shard-to-shard all-to-all (``_dtensor.shard_dim_alltoall``, whose inner
+# collective a mode does not see)
+_KIND_OF = (("all_reduce", "all-reduce"), ("all_gather", "all-gather"),
+            ("reduce_scatter", "reduce-scatter"),
+            ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
+            ("permute", "collective-permute"))
+
+
+def _collective_kind(func) -> str:
+    """The JAX kind of a collective op, or "" for other ops."""
+    ns = getattr(func, "namespace", "")
+    if not (ns.startswith("_c10d_functional") or ns == "_dtensor"):
+        return ""
+    name = func._opname
+    for key, kind in _KIND_OF:
+        if key in name:
+            return kind
+    return ""
+
+
+class MeshCounter(ByteCounter):
+    """One device's counts of a run on DTensors: ``bytes`` (operand and
+    result bytes of the local ops, as :class:`ByteCounter`), ``flops``
+    (the matrix products' FLOPs of the local ops, ``FlopCounterMode``'s
+    formulas) and ``collectives``, a list of (kind, result bytes) of
+    every collective."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.collectives = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented      # DTensor desugars; its ops come back
+        kwargs = kwargs or {}
+        if any(issubclass(t, FakeTensor) for t in types):
+            return func(*args, **kwargs)   # DTensor's global-shape propagation
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        packet = getattr(func, "_overloadpacket", None)
+        if packet in flop_registry:
+            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+        kind = _collective_kind(func)
+        if kind:
+            self.collectives.append((kind, tensor_bytes(out)))
+        return out
+
+
+def mesh_cost_analysis(fn: Callable, *args
+                       ) -> Tuple[Dict[str, float], list, object]:
+    """(``{"flops", "bytes accessed"}`` per device, the collective
+    record, the result) of one call ``fn(*args)`` on DTensors, counted
+    by :class:`MeshCounter`."""
+    with MeshCounter() as counter:
+        out = fn(*args)
+    return ({"flops": float(counter.flops),
+             "bytes accessed": float(counter.bytes)},
+            counter.collectives, out)
+
+
+def parse_collective_bytes(collectives) -> Dict[str, int]:
+    """Result bytes per device of every collective in a
+    :class:`MeshCounter` record, by JAX kind, and their ``total``."""
+    out: Dict[str, int] = {c: 0 for c in _COLLECTIVES}
+    for kind, nbytes in collectives:
+        out[kind] += nbytes
+    out["total"] = sum(out[c] for c in _COLLECTIVES)
+    return out
+
+
+def count_collective_ops(collectives) -> Dict[str, int]:
+    """The number of collectives of each JAX kind in a record."""
+    out: Dict[str, int] = {c: 0 for c in _COLLECTIVES}
+    for kind, _ in collectives:
+        out[kind] += 1
+    return out
 
 
 def roofline_terms(flops_per_dev: float, bytes_per_dev: float,

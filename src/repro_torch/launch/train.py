@@ -9,10 +9,11 @@ kernels' plain versions). Random init from ``--seed`` on a generator on
 the run's device; per-layer remat on. ``--preset smoke`` runs the
 arch's reduced config, ``full`` its published widths. Checkpoint /
 restart with ``--checkpoint-dir`` and ``--resume``. ``--compile-only``
-runs the arch's ``train_4k`` cell of the one-card dry run
+runs the arch's ``train_4k`` cell of the dry run instead of training
 (``launch/dryrun.py``: the full config's step counted on the ``meta``
-device, written to ``results/dryrun``) instead of training, and prints
-its status line. As in JAX, each step's batch carries the stub
+device, written to ``results/dryrun``), on one card or, with ``--mesh
+single|multi``, on the 16 x 16 or 2 x 16 x 16 mesh as JAX's does, and
+prints its status. As in JAX, each step's batch carries the stub
 frontend inputs of the vlm (``patches``) and the encoder-decoder
 (``frames``) from one ``numpy.random.default_rng(0)`` drawn once a
 step (``data.pipeline.attach_modality_stubs``); an MoE arch's loss adds
@@ -80,12 +81,17 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--compile-only", action="store_true",
                     help="count the full config's train_4k step on the meta "
-                         "device (the one-card dry run) instead of training")
+                         "device (the dry run) instead of training")
+    ap.add_argument("--mesh", default="card",
+                    choices=["card", "single", "multi"],
+                    help="--compile-only's mesh: one card, 16x16 or 2x16x16")
     args = ap.parse_args(argv)
 
     if args.compile_only:
         from .dryrun import run_cell
-        rec = run_cell(args.arch, "train_4k", out_dir="results/dryrun")
+        multi = {"card": None, "single": False, "multi": True}[args.mesh]
+        rec = run_cell(args.arch, "train_4k", out_dir="results/dryrun",
+                       multi_pod=multi)
         print(rec["status"], rec.get("roofline", rec.get("error")))
         return 0 if rec["status"] == "ok" else 1
 

@@ -31,6 +31,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..distributed import sharding as shd
+from ..distributed.sharding import constrain
 from ..kernels import ops
 from . import layers as nn
 from .config import ModelConfig
@@ -85,6 +87,7 @@ def _with_positions(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _enc_layer_fwd(cfg: ModelConfig, lp: Dict, h: torch.Tensor, *,
                    impl: str) -> torch.Tensor:
+    h = constrain(h, "batch", None, "residual")
     h = h + nn.attention_block(cfg, lp["attn"],
                                nn.apply_norm(cfg, lp["ln1"], h),
                                causal=False, impl=impl)
@@ -96,7 +99,7 @@ def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor, *,
     """frames [B, enc_seq, d_model] (the stub conv output) -> the
     encoder output [B, enc_seq, d_model]: one non-causal flash-attention
     call a layer."""
-    x = _with_positions(cfg, frames)
+    x = constrain(_with_positions(cfg, frames), "batch", None, "residual")
     x = nn.run_layers(functools.partial(_enc_layer_fwd, cfg, impl=impl), x,
                       params["enc_layers"], remat=remat)
     return nn.apply_norm(cfg, params["enc_norm"], x)
@@ -118,11 +121,13 @@ def _cross_attend(cfg: ModelConfig, lp: Dict, h: torch.Tensor,
 
 def _dec_layer_fwd(cfg: ModelConfig, lp: Dict, h: torch.Tensor,
                    enc_out: torch.Tensor, *, impl: str) -> torch.Tensor:
+    h = constrain(h, "batch", None, "residual")
     h = h + nn.attention_block(cfg, lp["self_attn"]["attn"],
                                nn.apply_norm(cfg, lp["ln1"], h),
                                causal=True, impl=impl)
     kx, vx = nn.cross_kv(lp["cross_attn"]["attn"], enc_out)
-    return _cross_attend(cfg, lp, h, kx, vx, impl=impl)
+    return constrain(_cross_attend(cfg, lp, h, kx, vx, impl=impl),
+                     "batch", None, "residual")
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
@@ -178,6 +183,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     ks, vs, kxs, vxs = [], [], [], []
     for lp in nn.unstack_layers(params["dec_layers"]):
         sa = lp["self_attn"]["attn"]
+        h = constrain(h, "batch", None, "residual")
         q, k, v = nn.qkv_project(sa, nn.apply_norm(cfg, lp["ln1"], h))
         # no softcap here, as in the JAX prefill
         attn = ops.attention(q, k, v, causal=True, impl=impl)
@@ -190,8 +196,8 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     logits = nn.unembed(cfg, _head(cfg, params), h)
     pad = (0, 0, 0, 0, 0, S - L)
     return logits, {
-        "k": torch.nn.functional.pad(torch.stack(ks), pad),
-        "v": torch.nn.functional.pad(torch.stack(vs), pad),
+        "k": shd.pad(torch.stack(ks), pad),
+        "v": shd.pad(torch.stack(vs), pad),
         "cross_k": torch.stack(kxs), "cross_v": torch.stack(vxs),
         "lens": torch.full((B,), L, dtype=torch.int32, device=tokens.device)}
 
@@ -213,6 +219,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                          device=x.device)
     new_lens = torch.clamp(cache["lens"] + 1, max=S).to(torch.int32)
     for i, lp in enumerate(nn.unstack_layers(params["dec_layers"])):
+        h = constrain(h, "batch", "model")
         h = h + nn.attention_decode(
             cfg, lp["self_attn"]["attn"], nn.apply_norm(cfg, lp["ln1"], h),
             cache["k"][i], cache["v"][i], pos, new_lens)

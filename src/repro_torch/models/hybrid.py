@@ -28,6 +28,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..distributed import sharding as shd
+from ..distributed.sharding import constrain
 from ..kernels import ops
 from . import layers as nn
 from . import mamba2
@@ -83,7 +85,7 @@ def _shared_apply(cfg: ModelConfig, sp: Dict, h: torch.Tensor,
     u = torch.cat([h, emb0], dim=-1)
     attn = nn.attention_block(cfg, sp["attn"], nn.apply_norm(cfg, sp["ln1"], u),
                               window=cfg.sliding_window, impl=impl)
-    return h + _shared_out(cfg, sp, u, attn)
+    return h + constrain(_shared_out(cfg, sp, u, attn), "batch", None, None)
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
@@ -93,7 +95,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     ``remat`` each Mamba layer is recomputed in the backward (the
     shared block is not, as in JAX)."""
     emb0 = nn.embed(cfg, params["embed"], tokens)
-    h = emb0
+    h = constrain(emb0, "batch", None, None)
     layers = nn.unstack_layers(params["layers"])
     body = functools.partial(mamba2.layer_fwd, cfg, impl=impl)
     for s, e in _segments(cfg):
@@ -136,9 +138,9 @@ def _ring(t: torch.Tensor, L: int, S: int, cfg: ModelConfig) -> torch.Tensor:
     the prompt is shorter."""
     keep = t[:, -S:].to(nn.dt(cfg))
     if cfg.sliding_window is not None and L > S:
-        keep = torch.roll(keep, L % S, dims=1)
+        keep = shd.roll(keep, L % S, 1)
     if L < S:
-        keep = torch.nn.functional.pad(keep, (0, 0, 0, 0, 0, S - L))
+        keep = shd.pad(keep, (0, 0, 0, 0, 0, S - L))
     return keep
 
 

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import sharding as shd
+from ..distributed.sharding import constrain
 from ..kernels import ops
 from .config import ModelConfig
 
@@ -47,7 +49,7 @@ def unstack_layers(layers: Dict) -> List[Dict]:
     split once with ``torch.unbind``. Its backward is one ``stack`` per
     leaf; indexing ``w[i]`` in every layer would instead allocate a
     zero-filled gradient of the whole stacked leaf per layer."""
-    parts = {k: unstack_layers(v) if isinstance(v, dict) else torch.unbind(v, 0)
+    parts = {k: unstack_layers(v) if isinstance(v, dict) else shd.unbind_layers(v)
              for k, v in layers.items()}
     n = len(next(iter(parts.values())))
     return [{k: p[i] for k, p in parts.items()} for i in range(n)]
@@ -142,8 +144,15 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm (biased variance), computed in float32."""
     xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    if isinstance(xf, shd.DTensor):
+        # sums reduce a sharded d as Partial(sum) stats; DTensor cannot
+        # take mean's Partial(avg) back through the backward
+        n = xf.shape[-1]
+        mu = xf.sum(dim=-1, keepdim=True) / n
+        var = torch.square(xf - mu).sum(dim=-1, keepdim=True) / n
+    else:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
     out = (xf - mu) * torch.rsqrt(var + eps)
     out = out * scale.float() + bias.float()
     return out.to(x.dtype)
@@ -232,18 +241,23 @@ def init_attention(gen, cfg: ModelConfig, device,
 
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., d] @ w [d, heads, hd] -> [..., heads, hd]."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    return shd.unflatten(x @ shd.flatten(w, 1, 2), -1, w.shape[1:])
 
 
 def merge_heads(x: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """x [..., H, hd] @ wo [H, hd, d] -> [..., d]."""
-    return x.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    return shd.flatten(x, -2, -1) @ shd.flatten(wo, 0, 1)
 
 
 def qkv_project(p: Dict, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    return (project_heads(x, p["wq"]), project_heads(x, p["wk"]),
-            project_heads(x, p["wv"]))
+    q, k, v = (project_heads(x, p["wq"]), project_heads(x, p["wk"]),
+               project_heads(x, p["wv"]))
+    if x.ndim == 3:
+        q = constrain(q, "batch", None, "model", None)
+        k = constrain(k, "batch", None, "model", None)
+        v = constrain(v, "batch", None, "model", None)
+    return q, k, v
 
 
 def attention_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
@@ -269,13 +283,13 @@ def attention_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
     else:
-        q = project_heads(x, p["wq"])
+        q = constrain(project_heads(x, p["wq"]), "batch", None, "model", None)
         k, v = kv_override
         causal = False
     out = ops.attention(q, k, v, causal=causal, window=window,
                         logit_softcap=cfg.logit_softcap, impl=impl,
                         prefix_len=prefix_len if causal else 0)
-    return merge_heads(out, p["wo"])
+    return constrain(merge_heads(out, p["wo"]), "batch", None, None)
 
 
 def cross_kv(p: Dict, enc_out: torch.Tensor
@@ -338,12 +352,12 @@ def attention_decode(
         v_new, vs_new = quantize_kv(v_new)
     slot = pos % S                                   # ring when S < max_len
     # an index_put with tensor indices: no host sync, and it runs on meta
-    idx = (torch.arange(B, device=x.device), slot.expand(B))
-    k_cache[idx] = k_new.to(k_cache.dtype)
-    v_cache[idx] = v_new.to(v_cache.dtype)
+    caches, news = [k_cache, v_cache], [k_new, v_new]
     if kv_scales is not None:
-        kv_scales[0][idx] = ks_new
-        kv_scales[1][idx] = vs_new
+        caches += list(kv_scales)
+        news += [ks_new, vs_new]
+    shd.write_rows(caches, slot, news)
+    if kv_scales is not None:
         k_attn = dequantize_kv(k_cache, kv_scales[0]).to(q.dtype)
         v_attn = dequantize_kv(v_cache, kv_scales[1]).to(q.dtype)
     else:
@@ -368,13 +382,15 @@ def init_mlp(gen, cfg: ModelConfig, device,
 
 def mlp_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["w1"]
+    h = constrain(h, "batch", None, "model") if h.ndim == 3 else h
     if cfg.act == "swiglu":
         h = F.silu(h) * (x @ p["w3"])
     elif cfg.act == "geglu":
         h = F.gelu(h, approximate="tanh") * (x @ p["w3"])
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["w2"]
+    out = h @ p["w2"]
+    return constrain(out, "batch", None, None) if out.ndim == 3 else out
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +440,27 @@ def moe_route(cfg: ModelConfig, p: Dict, xg: torch.Tensor) -> Dict:
                 pos_sel=pos_sel, keep=keep, capacity=capacity)
 
 
+def _bmm_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The four einsums of :func:`moe_block` as batched products over
+    the group axis, for DTensors: DTensor's einsum decomposes into views
+    that merge a sharded dim into another, which some versions refuse."""
+    if eq == "gtke,gtkc->gtec":          # [G, g, K, E] x [G, g, K, C]
+        G, g, K, E = a.shape
+        C = b.shape[-1]
+        out = torch.bmm(a.reshape(G * g, K, E).transpose(1, 2),
+                        b.reshape(G * g, K, C))
+        return out.reshape(G, g, E, C)
+    if eq == "gtec,gtd->egcd":           # [G, g, E, C] x [G, g, d]
+        G, g, E, C = a.shape
+        out = torch.bmm(a.reshape(G, g, E * C).transpose(1, 2), b)
+        return out.reshape(G, E, C, b.shape[-1]).permute(1, 0, 2, 3)
+    if eq == "gtec,egcd->gtd":           # [G, g, E, C] x [E, G, C, d]
+        G, g, E, C = a.shape
+        return torch.bmm(a.reshape(G, g, E * C),
+                         b.permute(1, 0, 2, 3).reshape(G, E * C, b.shape[-1]))
+    raise ValueError(eq)
+
+
 def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed experts with capacity-bounded grouped dispatch, x
@@ -442,19 +479,20 @@ def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor
     G = -(-T // g)
     xt = x.reshape(T, d)
     if G * g > T:
-        xt = F.pad(xt, (0, 0, 0, G * g - T))
-    xg = xt.reshape(G, g, d)
+        xt = shd.pad(xt, (0, 0, 0, G * g - T))
+    xg = constrain(xt.reshape(G, g, d), "batch", None, None)
     r = moe_route(cfg, p, xg)
     C = r["capacity"]
     # a dropped entry's place is >= C: its one-hot row over C is zero
     # (jax.nn.one_hot's), masked here by keep instead of F.one_hot
     cap_oh = F.one_hot(r["pos_sel"].long().clamp(max=C - 1), C).float()
     cap_oh = cap_oh * r["keep"][..., None]                       # [G, g, K, C]
-    disp = torch.einsum("gtke,gtkc->gtec", r["onehot"], cap_oh)
-    comb = torch.einsum("gtke,gtkc->gtec", r["onehot"],
-                        cap_oh * r["top_p"][..., None])
-    xe = torch.einsum("gtec,gtd->egcd", disp.to(dt(cfg)), xg)    # [E, G, C, d]
-    xe = xe.reshape(E, G * C, d)
+    ein = torch.einsum if not isinstance(xg, shd.DTensor) else _bmm_einsum
+    disp = ein("gtke,gtkc->gtec", r["onehot"], cap_oh)
+    comb = ein("gtke,gtkc->gtec", r["onehot"], cap_oh * r["top_p"][..., None])
+    xe = ein("gtec,gtd->egcd", disp.to(dt(cfg)), xg)             # [E, G, C, d]
+    # JAX's [G, E, C, d] constraint, on the port's expert-major layout
+    xe = constrain(xe, "expert", "batch", None, None).reshape(E, G * C, d)
     h = torch.bmm(xe, p["w1"])                                   # [E, G C, ff]
     if cfg.act == "swiglu":
         h = F.silu(h) * torch.bmm(xe, p["w3"])
@@ -463,8 +501,10 @@ def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor
     else:
         h = F.gelu(h, approximate="tanh")
     ye = torch.bmm(h, p["w2"]).reshape(E, G, C, d)
-    out = torch.einsum("gtec,egcd->gtd", comb.to(dt(cfg)), ye)
-    out = out.reshape(G * g, d)[:T].reshape(B, L, d)
+    ye = constrain(ye, "expert", "batch", None, None)
+    out = ein("gtec,egcd->gtd", comb.to(dt(cfg)), ye)
+    out = constrain(out.reshape(G * g, d)[:T].reshape(B, L, d),
+                    "batch", None, None)
     density = r["onehot"].sum(2).mean(dim=1)                     # [G, E]
     router_prob = r["probs"].mean(dim=1)                         # [G, E]
     aux = (density * router_prob).sum(-1).mean() * E
@@ -485,7 +525,7 @@ def moe_block_decode(cfg: ModelConfig, p: Dict,
 # ---------------------------------------------------------------------------
 
 def embed(cfg: ModelConfig, p: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["table"][tokens.long()]
+    x = shd.embedding(p["table"], tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -493,7 +533,10 @@ def embed(cfg: ModelConfig, p: Dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    logits = x @ p["table"].T
+    # on a mesh the table is gathered on d first, so its gradient comes
+    # back on its own placement, as the lookup's does (a tied table adds
+    # the two)
+    logits = x @ shd.only_split(p["table"], 0).T
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits

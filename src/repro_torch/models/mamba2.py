@@ -28,7 +28,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops, ref
+from ..distributed import sharding as shd
+from ..distributed.sharding import constrain
+from ..kernels import ops
 from . import layers as nn
 from .config import ModelConfig
 
@@ -106,7 +108,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     shifted multiply-adds in float32 (exact, and no TF32 as a cuDNN
     convolution would take by default on the card)."""
     k, L = w.shape[0], x.shape[1]
-    xp = F.pad(x.float(), (0, 0, k - 1, 0))
+    xp = shd.pad(x.float(), (0, 0, k - 1, 0))
     wf = w.float()
     out = xp[:, 0:L] * wf[0]
     for i in range(1, k):
@@ -117,8 +119,11 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 def _ssm_pre(cfg: ModelConfig, sp: Dict, x: torch.Tensor):
     """Split input projections: x [B, L, d] -> (z, xs, b_raw, c_raw,
     dt_raw), all before the conv."""
-    return (x @ sp["w_z"], x @ sp["w_x"], x @ sp["w_b"], x @ sp["w_c"],
-            x @ sp["w_dt"])
+    z, xs = x @ sp["w_z"], x @ sp["w_x"]
+    if x.ndim == 3:
+        z = constrain(z, "batch", None, "model")
+        xs = constrain(xs, "batch", None, "model")
+    return z, xs, x @ sp["w_b"], x @ sp["w_c"], x @ sp["w_dt"]
 
 
 def _ssd_inputs(cfg: ModelConfig, sp: Dict, xs: torch.Tensor,
@@ -133,6 +138,8 @@ def _ssd_inputs(cfg: ModelConfig, sp: Dict, xs: torch.Tensor,
     dt = F.softplus(dt_raw.float() + sp["dt_bias"])
     a = -torch.exp(sp["A_log"]) * dt                     # [..., H] log decay
     x_heads = xs.unflatten(-1, (H, P))
+    if x_heads.ndim == 4:
+        x_heads = constrain(x_heads, "batch", None, "model", None)
     xh = (x_heads.float() * dt[..., None]).to(xs.dtype)
     return xh, a.to(xs.dtype), b, c, x_heads, dt
 
@@ -158,7 +165,8 @@ def layer_fwd(cfg: ModelConfig, lp: Dict, h: torch.Tensor, *,
     c = F.silu(_causal_conv(c, sp["conv_c_w"], sp["conv_c_b"]))
     xh, a, b, c, x_heads, _ = _ssd_inputs(cfg, sp, xs, b, c, dt_raw)
     y = ops.ssd(xh, a, b, c, chunk=cfg.ssm_chunk, impl=impl)
-    return h + _gated_out(cfg, sp, y, z, x_heads)
+    return h + constrain(_gated_out(cfg, sp, y, z, x_heads),
+                         "batch", None, None)
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
@@ -167,7 +175,9 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     """Full-sequence forward: (logits [B, L, V], aux 0.0). With
     ``remat`` the SSD kernel runs twice per layer and step (forward and
     recompute, see ``layers.run_layers``)."""
-    x = nn.embed(cfg, params["embed"], tokens)
+    # residual stream replicated on d (batch-sharded only): every layer
+    # then costs one row-parallel all-reduce (out_proj)
+    x = constrain(nn.embed(cfg, params["embed"], tokens), "batch", None, None)
     x = nn.run_layers(functools.partial(layer_fwd, cfg, impl=impl), x,
                       params["layers"], remat=remat)
     x = nn.apply_norm(cfg, params["final_norm"], x)
@@ -212,8 +222,7 @@ def _layer_prefill(cfg: ModelConfig, lp: Dict, h: torch.Tensor):
     b = F.silu(_causal_conv(b, sp["conv_b_w"], sp["conv_b_b"]))
     c = F.silu(_causal_conv(c, sp["conv_c_w"], sp["conv_c_b"]))
     xh, a, b, c, x_heads, _ = _ssd_inputs(cfg, sp, xs, b, c, dt_raw)
-    y, state = ref.ssd_chunked(xh, a, b, c, chunk=cfg.ssm_chunk,
-                               return_final_state=True)
+    y, state = ops.ssd_with_state(xh, a, b, c, chunk=cfg.ssm_chunk)
     return h + _gated_out(cfg, sp, y, z, x_heads), (conv_state, state)
 
 

@@ -24,6 +24,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..distributed.optimizer import tree_leaves, tree_map
+from ..distributed.sharding import constrain, take_last, whole_dim
 from .config import ModelConfig
 from .registry import get_api
 
@@ -37,7 +38,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     dtype), labels [B, L] ints; ``mask`` weights the positions."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)                          # [B, L]
-    true_logit = lf.gather(-1, labels.long()[..., None])[..., 0]
+    true_logit = take_last(lf, labels.long())
     nll = lse - true_logit
     if mask is not None:
         m = mask.float()
@@ -56,6 +57,7 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict, *,
     L = labels.shape[1]
     if logits.shape[1] != L:       # a prefix before the tokens: score the tail
         logits = logits[:, -L:]
+    logits = constrain(logits, "batch", None, "model")
     ce = cross_entropy(logits, labels, batch.get("loss_mask"))
     total = ce + cfg.router_aux_coef * aux
     return total, {"loss": total, "ce": ce, "aux": aux}
@@ -105,6 +107,9 @@ def sample_logits(logits: torch.Tensor, gen: Optional[torch.Generator],
     Greedy takes the first index among tied maxima, as ``jnp.argmax``
     does. Temperature sampling draws from ``gen`` (which must live on
     the logits' device); it cannot reproduce ``jax.random``'s bits."""
+    # the vocab whole on every rank of a mesh: DTensor's sharded argmax
+    # fails on a pod x data x model mesh
+    logits = whole_dim(logits, -1)
     if temperature <= 0.0 or gen is None:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(logits.float() / temperature, dim=-1)

@@ -34,6 +34,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..distributed import sharding as shd
+from ..distributed.sharding import constrain
 from ..kernels import ops
 from . import layers as nn
 from .config import ModelConfig
@@ -83,7 +85,7 @@ def init(cfg: ModelConfig, gen: torch.Generator,
 
 def layer_params(params: Dict, i: int) -> Dict:
     """Layer ``i``'s slice of the stacked ``params["layers"]`` (views)."""
-    return {group: {name: w[i] for name, w in ws.items()}
+    return {group: {name: shd.layer(w, i) for name, w in ws.items()}
             for group, ws in params["layers"].items()}
 
 
@@ -133,12 +135,13 @@ def _layer_fwd(cfg: ModelConfig, lp: Dict, carry, *, prefix_len: int,
     """One decoder layer over the full sequence: carry (h [B, L, d],
     the aux loss so far) -> (h, aux plus this layer's)."""
     h, aux = carry
+    h = constrain(h, "batch", None, "residual")
     h = h + nn.attention_block(cfg, lp["attn"],
                                nn.apply_norm(cfg, lp["ln1"], h),
                                window=cfg.sliding_window,
                                prefix_len=prefix_len, impl=impl)
     out, layer_aux = _mlp(cfg, lp, nn.apply_norm(cfg, lp["ln2"], h))
-    return h + out, aux + layer_aux
+    return constrain(h + out, "batch", None, "residual"), aux + layer_aux
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
@@ -153,7 +156,8 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     ``ops.attention``. With ``remat`` the kernel runs twice per layer
     and step (see ``layers.run_layers``)."""
     _check_family(cfg)
-    x = _embed_inputs(cfg, params, tokens, patches)
+    x = constrain(_embed_inputs(cfg, params, tokens, patches),
+                  "batch", None, "residual")
     body = functools.partial(_layer_fwd, cfg, prefix_len=_prefix(cfg),
                              impl=impl)
     x, aux = nn.run_layers(body, (x, torch.zeros((), device=x.device)),
@@ -216,6 +220,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
+        h = constrain(h, "batch", None, "residual")
         attn_in = nn.apply_norm(cfg, lp["ln1"], h)
         q, k, v = nn.qkv_project(lp["attn"], attn_in)   # [B, L, H/Hk, hd]
         if cfg.pos == "rope":
@@ -230,8 +235,8 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         v_keep = v[:, -S:].to(nn.dt(cfg))
         if cfg.sliding_window is not None and L > S:
             shift = L % S
-            k_keep = torch.roll(k_keep, shift, dims=1)
-            v_keep = torch.roll(v_keep, shift, dims=1)
+            k_keep = shd.roll(k_keep, shift, 1)
+            v_keep = shd.roll(v_keep, shift, 1)
         ks.append(k_keep)
         vs.append(v_keep)
     h = nn.apply_norm(cfg, params["final_norm"], h[:, -1])
@@ -240,8 +245,8 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     ks, vs = torch.stack(ks), torch.stack(vs)            # [L, B, <=S, Hk, hd]
     if L < S:
         pad = (0, 0, 0, 0, 0, S - L)
-        ks = torch.nn.functional.pad(ks, pad)
-        vs = torch.nn.functional.pad(vs, pad)
+        ks = shd.pad(ks, pad)
+        vs = shd.pad(vs, pad)
     cache = {"lens": torch.full((B,), min(L, S), dtype=torch.int32,
                                 device=tokens.device)}
     if cfg.kv_dtype == "int8":
@@ -270,6 +275,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         lp = layer_params(params, i)
         scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quant
                   else None)
+        h = constrain(h, "batch", "model")
         attn_in = nn.apply_norm(cfg, lp["ln1"], h)
         h = h + nn.attention_decode(
             cfg, lp["attn"], attn_in, cache["k"][i], cache["v"][i], pos,
@@ -311,6 +317,7 @@ def decode_step_paged(cfg: ModelConfig, params: Dict, pool: Dict,
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         kp, vp = pool["k"][i], pool["v"][i]            # [n_pages, page, Hk, hd]
+        h = constrain(h, "batch", "model")
         attn_in = nn.apply_norm(cfg, lp["ln1"], h)
         q, k_new, v_new = nn.qkv_project(lp["attn"], attn_in)
         if cfg.pos == "rope":
@@ -356,6 +363,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Dict, pool: Dict,
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         kp, vp = pool["k"][i], pool["v"][i]
+        h = constrain(h, "batch", None, "residual")
         attn_in = nn.apply_norm(cfg, lp["ln1"], h)
         q, k, v = nn.qkv_project(lp["attn"], attn_in)   # [B, C, H/Hk, hd]
         if cfg.pos == "rope":
