@@ -1,0 +1,7 @@
+"""model.prefill_mfu.bursty: ``model.prefill_mfu`` read in the bursty cell, a metric
+of its own so that its bound, or the end-to-end metric it moves, is the
+bursty cell's (see ``model.prefill_mfu.py``)."""
+
+from driftbench.bench import reader
+
+read = reader("model.prefill_mfu")
