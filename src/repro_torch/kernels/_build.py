@@ -15,7 +15,9 @@ source. The build directory is ``kernels/.build`` beside this file
 (listed in ``.gitignore``). No source includes PyTorch's headers, so a
 build takes seconds; :func:`build_all` starts one ``nvcc`` per source,
 all at once. Nothing here runs at import time: the first wrapper call
-on a CUDA tensor builds and loads its library.
+on a CUDA tensor builds and loads its library, inside a
+``kernels.build`` span of the process-global recorder (so a build or
+load inside a traced window shows as such).
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+
+from ..obs import get_recorder
+from ..obs import events as tr
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
@@ -132,9 +137,9 @@ def load(name: str, symbol: str):
     stream) and ``restype`` ``c_int`` (the ``cudaGetLastError()`` after
     launch)."""
     if name not in _loaded:
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _loaded[name] = lib
+        with get_recorder().span(tr.KERNELS_BUILD):
+            _finish(name, _start(name))
+            _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
     fn = getattr(_loaded[name], symbol)
     fn.argtypes = SIGNATURES[name][symbol]
     fn.restype = ctypes.c_int

@@ -25,6 +25,14 @@ forward launches the kernel and whose backward differentiates the plain
 version, recomputed from the saved inputs (the JAX package has no
 backward kernel either: autodiff runs through its plain forms). Other
 tensors take the plain version, which autograd differentiates itself.
+
+With a live process-global recorder (``obs.get_recorder()``, read at
+each call: the models take no recorder) ``attention``,
+``decode_attention``, ``ssd_with_state`` and ``ssm_decode_step`` each
+record an ``ops.*`` span of the call, ``attention``'s with its shape
+(on a mesh only ``attention`` does, around each rank's local call).
+With the recorder off each costs one call that returns the shared
+no-op span (``attention`` checks ``enabled`` first).
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from ..obs import get_recorder
+from ..obs import events as tr
 from . import ref
 from .chunked_prefill import chunked_prefill_attention as _chunked_prefill_cuda
 from .flash_attention import flash_attention as _flash_cuda
@@ -238,12 +248,18 @@ def attention(
             q, k, v, dict(causal=causal, window=window,
                           logit_softcap=logit_softcap,
                           prefix_len=prefix_len), impl)
-    if _use_kernel(impl, q):
-        return _FlashAttention.apply(q, k, v, causal, window, logit_softcap,
-                                     prefix_len)
-    return ref.flash_attention_chunked(
-        q, k, v, causal=causal, window=window, logit_softcap=logit_softcap,
-        prefix_len=prefix_len)
+    rec = get_recorder()
+    span = rec.span(
+        tr.OPS_ATTENTION, B=q.shape[0], Lq=q.shape[1], Lk=k.shape[1],
+        H=q.shape[2], Hk=k.shape[2], D=q.shape[3], causal=causal,
+        window=window) if rec.enabled else tr.NULL_SPAN
+    with span:
+        if _use_kernel(impl, q):
+            return _FlashAttention.apply(q, k, v, causal, window,
+                                         logit_softcap, prefix_len)
+        return ref.flash_attention_chunked(
+            q, k, v, causal=causal, window=window,
+            logit_softcap=logit_softcap, prefix_len=prefix_len)
 
 
 def ssd(
@@ -299,9 +315,10 @@ def decode_attention(
                          in_placements=(q_pl, kv_pl, kv_pl, len_pl),
                          device_mesh=mesh, redistribute_inputs=True)(
             *(_on_mesh(t, mesh) for t in (q, k_cache, v_cache, cache_len)))
-    return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
-                                    window=window,
-                                    logit_softcap=logit_softcap)
+    with get_recorder().span(tr.OPS_DECODE_ATTENTION):
+        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                        window=window,
+                                        logit_softcap=logit_softcap)
 
 
 def paged_decode_attention(
@@ -397,7 +414,8 @@ def ssm_decode_step(h: torch.Tensor, x_t: torch.Tensor, a_t: torch.Tensor,
                          in_placements=(x_pl, x_pl, x_pl, g_pl, g_pl),
                          device_mesh=mesh, redistribute_inputs=True)(
             *(_on_mesh(t, mesh) for t in (h, x_t, a_t, b_t, c_t)))
-    return ref.ssm_decode_step_ref(h, x_t, a_t, b_t, c_t)
+    with get_recorder().span(tr.OPS_SSM_DECODE_STEP):
+        return ref.ssm_decode_step_ref(h, x_t, a_t, b_t, c_t)
 
 
 def ssd_with_state(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -421,4 +439,6 @@ def ssd_with_state(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          in_placements=(x_pl, x_pl, g_pl, g_pl),
                          device_mesh=mesh, redistribute_inputs=True)(
             *(_on_mesh(t, mesh) for t in (x, a, b, c)))
-    return ref.ssd_chunked(x, a, b, c, chunk=chunk, return_final_state=True)
+    with get_recorder().span(tr.OPS_SSD_WITH_STATE):
+        return ref.ssd_chunked(x, a, b, c, chunk=chunk,
+                               return_final_state=True)

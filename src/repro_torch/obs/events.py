@@ -16,6 +16,18 @@ The observability substrate every execution layer emits into:
 * :class:`NullRecorder` — the zero-overhead default. Its class-level
   ``enabled = False`` is the single attribute check hot paths pay when
   tracing is off (``if self.trace.enabled: ...``).
+* :class:`Span` — one region of the program timed on the host clock
+  (``time.perf_counter_ns``), opened by ``with recorder.span(name):``
+  (names from :data:`SPAN_NAMES`). Spans nest (one thread, so a stack:
+  each knows the id of the span open around it) and are never sampled.
+  While a ``torch.profiler`` session is active a span also opens a
+  ``record_function`` range of its name, so the program's spans sit on
+  the device trace's clock; outside one, no range is opened.
+  ``NullRecorder.span`` hands back the shared no-op :data:`NULL_SPAN`.
+
+This file is a port of the JAX package's ``obs/events.py``: the events,
+the ring and the lifecycle check are the original's; the spans are the
+port's own (the JAX package has no host-clock spans).
 
 Emission ordering contract: components emit events in causal order at
 the simulated timestamp they happen, so for any one request the event
@@ -26,9 +38,12 @@ can check chains without re-sorting.
 from __future__ import annotations
 
 import itertools
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
+
+import torch
 
 # --- event taxonomy ----------------------------------------------------
 ARRIVE = "arrive"                 # request hits the front door
@@ -65,6 +80,33 @@ EVENT_KINDS = frozenset({
 #: ones worth thinning by default. Everything else records 1:1.
 DEFAULT_SAMPLE_EVERY: Dict[str, int] = {DECODE_STEP: 32, GAUGE: 8}
 
+# --- span taxonomy -----------------------------------------------------
+ENGINE_STEP = "engine.step"             # ServingEngine.step, whole
+ENGINE_ADMIT = "engine.admit"           # dispatch + tokenise + H2D copy
+ENGINE_PREFILL = "engine.prefill"       # one device prefill (or chunk)
+ENGINE_INSERT_CACHE = "engine.insert_cache"   # prefill cache -> slot/pages
+ENGINE_FIRST_TOKEN = "engine.first_token"     # ends when it is on the host
+ENGINE_DECODE = "engine.decode"         # the decode half of a step
+ENGINE_SAMPLE = "engine.sample"         # ends when the tokens are on the host
+ENGINE_RETIRE = "engine.retire"
+CORE_DISPATCH = "core.dispatch"         # DriftScheduler.dispatch
+CORE_COMPLETE = "core.complete"         # DriftScheduler.complete (Eq. 5-6)
+MODEL_PREFILL = "model.prefill"         # the model's prefill call
+MODEL_DECODE = "model.decode"           # the model's decode call
+OPS_ATTENTION = "ops.attention"         # kernels/ops.py wrappers
+OPS_DECODE_ATTENTION = "ops.decode_attention"
+OPS_SSD_WITH_STATE = "ops.ssd_with_state"
+OPS_SSM_DECODE_STEP = "ops.ssm_decode_step"
+KERNELS_BUILD = "kernels.build"         # a kernel's first-use build + load
+
+SPAN_NAMES = frozenset({
+    ENGINE_STEP, ENGINE_ADMIT, ENGINE_PREFILL, ENGINE_INSERT_CACHE,
+    ENGINE_FIRST_TOKEN, ENGINE_DECODE, ENGINE_SAMPLE, ENGINE_RETIRE,
+    CORE_DISPATCH, CORE_COMPLETE, MODEL_PREFILL, MODEL_DECODE,
+    OPS_ATTENTION, OPS_DECODE_ATTENTION, OPS_SSD_WITH_STATE,
+    OPS_SSM_DECODE_STEP, KERNELS_BUILD,
+})
+
 
 @dataclass
 class TraceEvent:
@@ -96,6 +138,68 @@ class TraceEvent:
         return out
 
 
+class Span:
+    """One span (see the module doc): ``name``, its ``id`` and its
+    ``parent``'s (None at the top), start and end in
+    ``time.perf_counter_ns`` nanoseconds, what the caller gave in
+    ``data`` (``ops.attention`` gives its shape), and ``ranged`` when a
+    profiler range of the same name was opened with it. The span is its
+    own context manager; :meth:`TraceRecorder.span` makes it."""
+
+    __slots__ = ("name", "id", "parent", "t0_ns", "t1_ns", "ranged",
+                 "data", "_rec", "_range")
+
+    def __init__(self, rec: "TraceRecorder", name: str, span_id: int,
+                 data: dict) -> None:
+        self.name = name
+        self.id = span_id
+        self.parent: Optional[int] = None
+        self.t0_ns = self.t1_ns = 0
+        self.ranged = False
+        self.data = data
+        self._rec = rec
+        self._range = None
+
+    @property
+    def dur_ns(self) -> int:
+        return self.t1_ns - self.t0_ns
+
+    def __enter__(self) -> "Span":
+        stack = self._rec._stack
+        self.parent = stack[-1].id if stack else None
+        stack.append(self)
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+            self.ranged = True
+        self.t0_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.t1_ns = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        self._rec._close(self)
+        return False
+
+
+class _NullSpan:
+    """The span of a recorder that is off: enters, exits and records
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+
 class NullRecorder:
     """Tracing-off sentinel: hot paths check ``enabled`` once and skip
     every emission. All methods are harmless no-ops so accidental calls
@@ -105,6 +209,12 @@ class NullRecorder:
 
     def emit(self, ts: float, kind: str, **kw) -> None:
         pass
+
+    def span(self, name: str, **data) -> _NullSpan:
+        return NULL_SPAN
+
+    def spans(self) -> List[Span]:
+        return []
 
     def begin_segment(self, label: str) -> int:
         return 0
@@ -135,7 +245,8 @@ class TraceRecorder:
 
     Observers receive *every* emission (pre-sampling) via
     ``observer.on_event(ev)`` — streaming aggregates must not be
-    subject to ring thinning or overflow.
+    subject to ring thinning or overflow. Spans are kept in a ring of
+    their own of the same ``capacity``, never sampled.
     """
 
     enabled = True
@@ -156,6 +267,9 @@ class TraceRecorder:
                 self.sample_every[k] = int(n)
         self._ring: deque = deque(maxlen=capacity)
         self._observers: List = list(observers)
+        self._spans: deque = deque(maxlen=capacity)
+        self._span_ids = itertools.count()
+        self._stack: List[Span] = []
         self._seq = itertools.count()
         self._emitted: Dict[str, int] = {}
         self._recorded: Dict[str, int] = {}
@@ -197,7 +311,22 @@ class TraceRecorder:
             self._ring.append(ev)
             self._recorded[kind] = self._recorded.get(kind, 0) + 1
 
+    def span(self, name: str, **data) -> Span:
+        """A span of ``name`` (from :data:`SPAN_NAMES`), to open with
+        ``with``; ``data`` is kept with it."""
+        if name not in SPAN_NAMES:
+            raise ValueError(f"unknown span name {name!r}")
+        return Span(self, name, next(self._span_ids), data)
+
+    def _close(self, span: Span) -> None:
+        self._stack.pop()
+        self._spans.append(span)
+
     # ------------------------------------------------------------------
+    def spans(self) -> List[Span]:
+        """Closed spans, in the order they were opened."""
+        return sorted(self._spans, key=lambda sp: sp.id)
+
     def events(self) -> List[TraceEvent]:
         """Ring contents, oldest first (post-sampling, post-overflow)."""
         return list(self._ring)

@@ -64,6 +64,16 @@ in place.
 EOS: with randomly-initialised models there is no semantic EOS, so
 requests stop at their ground-truth output length (oracle EOS, clipped
 by max_tokens).
+
+Spans: with a live recorder (``trace``) each step records the host-clock
+spans of ``obs/events.py`` (``engine.*`` for its phases, ``core.*``
+around the scheduler's dispatch and completion, ``model.*`` around the
+model's calls); ``engine.first_token`` and ``engine.sample`` end when
+their tokens exist on the host. A step installs ``trace`` as the
+process-global recorder while it runs, so the ``ops.*`` spans of
+``kernels/ops.py`` land in the same recorder, under their ``model.*``
+span. With the recorder off each span costs one call that returns the
+shared no-op span. Spans change no control flow and no result.
 """
 
 from __future__ import annotations
@@ -83,6 +93,7 @@ from ..models.config import ModelConfig
 from ..models.layers import resolve_device
 from ..models.registry import get_api
 from ..models.steps import sample_logits
+from .. import obs
 from ..obs import events as tr
 from ..obs import resolve_recorder
 from .kv_cache import (PagedAllocator, PagedPool, PagedSeqLedger, PrefixTree,
@@ -383,22 +394,35 @@ class ServingEngine:
         its K/V written into the slot's pages from the cached boundary
         on, then the shareable pages donated (JAX's order)."""
         st = self.slots[slot]
-        if self.ecfg.paged:
-            logits, k_lv, v_lv = transformer.prefill_kv(
-                self.cfg, self.params, st.batch["tokens"],
-                patches=st.batch.get("patches"))
-            cached = self.ledger.cached_tokens(slot)
-            pages = self.ledger.table(slot)[cached // self.ecfg.page_size:]
-            write_prefill_pages(self.pool, (k_lv[:, 0], v_lv[:, 0]), pages,
-                                st.bucket, start_token=cached)
-            if self.prefix_tree is not None:
-                self.ledger.donate(slot, now)
-        else:
-            logits, cache_1 = self.api.prefill(
-                self.cfg, self.params, st.batch, max_len=self.ecfg.max_len)
-            self._insert_cache(slot, cache_1)
-        tok = sample_logits(logits, self._gen, self.ecfg.temperature)
-        self._emit_first_token(slot, int(tok[0]), now)
+        span = self.trace.span
+        with span(tr.ENGINE_PREFILL):
+            if self.ecfg.paged:
+                with span(tr.MODEL_PREFILL):
+                    logits, k_lv, v_lv = transformer.prefill_kv(
+                        self.cfg, self.params, st.batch["tokens"],
+                        patches=st.batch.get("patches"))
+                cached = self.ledger.cached_tokens(slot)
+                pages = self.ledger.table(slot)[cached // self.ecfg.page_size:]
+                with span(tr.ENGINE_INSERT_CACHE):
+                    write_prefill_pages(self.pool, (k_lv[:, 0], v_lv[:, 0]),
+                                        pages, st.bucket, start_token=cached)
+                if self.prefix_tree is not None:
+                    self.ledger.donate(slot, now)
+            else:
+                with span(tr.MODEL_PREFILL):
+                    logits, cache_1 = self.api.prefill(
+                        self.cfg, self.params, st.batch,
+                        max_len=self.ecfg.max_len)
+                with span(tr.ENGINE_INSERT_CACHE):
+                    self._insert_cache(slot, cache_1)
+            self._emit_first_token(slot, self._first_token(logits), now)
+
+    def _first_token(self, logits: torch.Tensor) -> int:
+        """Sample a finished prefill's first token and bring it to the
+        host (the span ends when it is there)."""
+        with self.trace.span(tr.ENGINE_FIRST_TOKEN):
+            tok = sample_logits(logits, self._gen, self.ecfg.temperature)
+            return int(tok[0])
 
     def _advance_prefill(self, slot: int, take: int, now: float) -> None:
         """Execute this iteration's device chunk for a paged slot through
@@ -421,20 +445,24 @@ class ServingEngine:
         if end <= start:
             return                       # budget exhausted, mid-prompt
         chunk_len = end - start
-        pt = torch.from_numpy(self.ledger.table_array(
-            [slot], self.alloc.pages_per_seq)).to(self.device)
-        q_offset = torch.tensor([start], dtype=torch.int32, device=self.device)
-        logits = transformer.prefill_chunk_paged(
-            self.cfg, self.params, self._pool, st.batch["tokens"][:, start:end], pt,
-            q_offset)
-        self.n_prefill_launches += 1
-        self.prefill_chunk_log.append((slot, chunk_len))
-        st.prefill_pos = end
-        if final:
-            if self.prefix_tree is not None:
-                self.ledger.donate(slot, now)
-            tok = sample_logits(logits, self._gen, self.ecfg.temperature)
-            self._emit_first_token(slot, int(tok[0]), now)
+        span = self.trace.span
+        with span(tr.ENGINE_PREFILL):
+            pt = torch.from_numpy(self.ledger.table_array(
+                [slot], self.alloc.pages_per_seq)).to(self.device)
+            q_offset = torch.tensor([start], dtype=torch.int32,
+                                    device=self.device)
+            with span(tr.MODEL_PREFILL):
+                logits = transformer.prefill_chunk_paged(
+                    self.cfg, self.params, self._pool,
+                    st.batch["tokens"][:, start:end], pt, q_offset)
+            self.n_prefill_launches += 1
+            self.prefill_chunk_log.append((slot, chunk_len))
+            st.prefill_pos = end
+            if final:
+                if self.prefix_tree is not None:
+                    self.ledger.donate(slot, now)
+                self._emit_first_token(slot, self._first_token(logits),
+                                       now)
 
     def _emit_first_token(self, slot: int, tok: int, now: float) -> None:
         """Prefill-completion bookkeeping: first token, honest TTFT
@@ -563,15 +591,17 @@ class ServingEngine:
     def _retire(self, slot: int, now: float) -> None:
         st = self.slots[slot]
         req = st.req
-        req.exec_end = now
-        self.sched.complete(req, st.generated, now)
-        if self.trace.enabled:
-            self.trace.emit(now, tr.COMPLETE, req_id=req.req_id,
-                            rid=self.trace_rid, tenant=req.tenant.label,
-                            observed=st.generated, e2e=req.e2e_latency,
-                            ttft=req.ttft,
-                            inter_token=req.inter_token_latency)
-        self._release_slot(slot)
+        with self.trace.span(tr.ENGINE_RETIRE):
+            req.exec_end = now
+            with self.trace.span(tr.CORE_COMPLETE):
+                self.sched.complete(req, st.generated, now)
+            if self.trace.enabled:
+                self.trace.emit(now, tr.COMPLETE, req_id=req.req_id,
+                                rid=self.trace_rid, tenant=req.tenant.label,
+                                observed=st.generated, e2e=req.e2e_latency,
+                                ttft=req.ttft,
+                                inter_token=req.inter_token_latency)
+            self._release_slot(slot)
 
     # --- main loop ----------------------------------------------------------
     def step(self, now: float) -> int:
@@ -581,6 +611,18 @@ class ServingEngine:
         one token, retire finished ones. Returns number of completions
         this step. Per-iteration admission honours the scheduler's
         ``max_new_per_step`` knob."""
+        # the ops.* spans of the model calls read the process-global
+        # recorder: make it this engine's for the step
+        outer = obs.get_recorder()
+        obs.set_recorder(self.trace)
+        try:
+            with self.trace.span(tr.ENGINE_STEP):
+                return self._step(now)
+        finally:
+            obs.set_recorder(outer)
+
+    def _step(self, now: float) -> int:
+        """The body of :meth:`step`."""
         joined = 0
         cap = self.sched.max_new_per_step
         for slot in self.free_slots():
@@ -594,14 +636,16 @@ class ServingEngine:
                 # retirements/evictions to free room (only reachable
                 # with a prefix cache — the plain pool is sized exactly)
                 break
-            req = self.sched.dispatch(now)
-            if req is None:
-                break
-            payload = self._pending_injections.pop(req.req_id, None)
-            if payload is not None:
-                self._admit_prefilled(req, slot, payload, now)
-            else:
-                self._admit(req, slot, now)
+            with self.trace.span(tr.ENGINE_ADMIT):
+                with self.trace.span(tr.CORE_DISPATCH):
+                    req = self.sched.dispatch(now)
+                if req is None:
+                    break
+                payload = self._pending_injections.pop(req.req_id, None)
+                if payload is not None:
+                    self._admit_prefilled(req, slot, payload, now)
+                else:
+                    self._admit(req, slot, now)
             joined += 1
 
         # chunked prefill: apportion the per-step budget in join order;
@@ -638,6 +682,26 @@ class ServingEngine:
                 self.busy_steps += 1
             return 0
 
+        with self.trace.span(tr.ENGINE_DECODE):
+            done = self._decode(now, decoding)
+        self.step_count += 1
+        self.busy_steps += 1
+        if self.trace.enabled:
+            self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
+                            name="queue_depth",
+                            value=self.sched.queue_depth())
+            self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
+                            name="active_slots",
+                            value=len(self.active_slots()))
+            if self.ecfg.paged:
+                self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
+                                name="kv_free_pages",
+                                value=self.alloc.free_pages)
+        return done
+
+    def _decode(self, now: float, decoding: List[int]) -> int:
+        """The decode half of a step: one token for every decoding slot,
+        then retire the finished ones. Returns how many retired."""
         tokens = np.zeros((self.ecfg.n_slots,), np.int64)
         for i in decoding:
             tokens[i] = self.slots[i].last_token
@@ -645,12 +709,15 @@ class ServingEngine:
             toks = self._decode_paged(tokens, decoding)
         else:
             # every lane at its own depth; lens is replaced, not mutated
-            logits, self.cache = self.api.decode_step(
-                self.cfg, self.params, self.cache,
-                torch.from_numpy(tokens).to(self.device), self.cache["lens"])
+            with self.trace.span(tr.MODEL_DECODE):
+                logits, self.cache = self.api.decode_step(
+                    self.cfg, self.params, self.cache,
+                    torch.from_numpy(tokens).to(self.device),
+                    self.cache["lens"])
             self.n_decode_launches += 1
-            toks = sample_logits(logits, self._gen,
-                                 self.ecfg.temperature).cpu().numpy()
+            with self.trace.span(tr.ENGINE_SAMPLE):
+                toks = sample_logits(logits, self._gen,
+                                     self.ecfg.temperature).cpu().numpy()
 
         done = 0
         tron = self.trace.enabled
@@ -665,19 +732,6 @@ class ServingEngine:
             if st.generated >= st.target:       # oracle EOS
                 self._retire(i, now)
                 done += 1
-        self.step_count += 1
-        self.busy_steps += 1
-        if tron:
-            self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
-                            name="queue_depth",
-                            value=self.sched.queue_depth())
-            self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
-                            name="active_slots",
-                            value=len(self.active_slots()))
-            if self.ecfg.paged:
-                self.trace.emit(now, tr.GAUGE, rid=self.trace_rid,
-                                name="kv_free_pages",
-                                value=self.alloc.free_pages)
         return done
 
     def _decode_paged(self, tokens: np.ndarray,
@@ -701,15 +755,17 @@ class ServingEngine:
         while max_pages < needed:
             max_pages *= 2
         max_pages = min(max_pages, self.alloc.pages_per_seq)
-        logits = transformer.decode_step_paged(
-            self.cfg, self.params, self._pool,
-            torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(pt).to(self.device),
-            torch.from_numpy(lens).to(self.device),
-            max_pages=max_pages)
+        with self.trace.span(tr.MODEL_DECODE):
+            logits = transformer.decode_step_paged(
+                self.cfg, self.params, self._pool,
+                torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(pt).to(self.device),
+                torch.from_numpy(lens).to(self.device),
+                max_pages=max_pages)
         self.n_decode_launches += 1
-        toks = sample_logits(logits, self._gen,
-                             self.ecfg.temperature).cpu().numpy()
+        with self.trace.span(tr.ENGINE_SAMPLE):
+            toks = sample_logits(logits, self._gen,
+                                 self.ecfg.temperature).cpu().numpy()
         for i in decoding:
             _, cows = self.ledger.extend(i, 1)
             for old, new in cows:

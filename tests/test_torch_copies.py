@@ -4,8 +4,10 @@ byte copy of its original.
 The port never imports ``repro``; the layers it shares with it
 (scheduler, workload, observability, simulators, cluster front end) are
 copies under the same relative path. This test keeps a copy from
-drifting silently. ``serving/engine.py``, ``serving/kv_cache.py`` and
-``cluster/driver.py`` are ports, not copies, and are not listed.
+drifting silently. ``serving/engine.py``, ``serving/kv_cache.py``,
+``cluster/driver.py`` and ``obs/events.py`` (the JAX events and ring,
+plus the port's host-clock spans) are ports, not copies, and are not
+listed.
 """
 
 from pathlib import Path
@@ -18,7 +20,7 @@ COPIES = [
     "core/__init__.py", "core/admission.py", "core/drift.py",
     "core/estimator.py", "core/policies.py", "core/queues.py",
     "core/request.py", "core/scheduler.py",
-    "obs/__init__.py", "obs/events.py", "obs/stats.py", "obs/series.py",
+    "obs/__init__.py", "obs/stats.py", "obs/series.py",
     "obs/slo.py", "obs/timeline.py", "obs/report.py",
     "workload/__init__.py", "workload/corpus.py", "workload/generator.py",
     "serving/metrics.py", "serving/cost_model.py", "serving/simulator.py",
