@@ -56,7 +56,13 @@ first that fails:
                  N 256 with a chunk of 100, 16 chunks, and N 4 with
                  H / G 1, against the plain version and its three
                  stages (ref.ssd_chunked_pieces), two calls
-                 bit-identical;
+                 bit-identical; the slot decode at h2o-danube's cell
+                 shape (256 lanes over 1,090 slots, 32 q over 8 kv
+                 heads of 80, a layer's view of the cache), whisper's
+                 cross-attention, paligemma-3b's and grok-1's heads
+                 and a split 32k ring, against the plain version
+                 and the split order's (ref.slot_decode_split_ref), two
+                 calls bit-identical;
                  gradients through the flash and SSD autograd Functions
                  at the trainers' shapes against plain autograd;
                  and, on a generator of their own, the vlm and MoE
@@ -93,7 +99,13 @@ first that fails:
                  mask) and decode (D 256), and grok-1's decode call and
                  chunk with softcap 30 (SDPA without the cap); flash
                  attention at the cells' 1 x 32,768 and 8 x 4,096 (SDPA
-                 over K/V expanded to the 9 query heads);
+                 over K/V expanded to the 9 query heads); the slot
+                 decode at h2o-danube's cell shape (lengths of its ring
+                 late in a window; bound by its bytes, Sum lens x 2,560
+                 B), the decode_32k cell's ring and whisper's
+                 cross-attention (SDPA as the port would call it: the
+                 cache's transposed views, the length mask built in the
+                 call, its kernels a call counted);
 5. engine        full-width smollm-135m, bf16, 24 requests through
                  DriftScheduler("sjf") and the paged engine, with the
                  kernels' launch counts checked against the iterations;
@@ -108,10 +120,12 @@ first that fails:
 8. engine_slot   full-width smollm-135m, bf16, 24 requests through
                  DriftScheduler("sjf") and the slot-ring engine
                  (paged=False), flash-attention launches checked against
-                 the prefills and no paged kernel launched;
+                 the prefills, slot decode launches against the decode
+                 iterations, and no paged kernel launched;
 9. engine_slot_profile  the slot-ring engine under torch.profiler;
 10. engine_slot_check  one full-width 256-token prefill (flash kernel)
-                 and one decode step from its cache, against the plain
+                 and one decode step from its cache (slot decode kernel),
+                 against the plain
                  path, within its bf16-vs-float32 deviation; beside it,
                  ungated, the plain path summed over other key blocks
                  against itself (how far an equally valid order moves
@@ -245,8 +259,8 @@ first that fails:
                  decode step of mamba2-2.7b, zamba2-1.2b and
                  h2o-danube-1.8b at position 524,287 (state, window
                  rings full); each the median step time of 3 after a
-                 warm-up (CUDA events), tokens/s, peak GiB, B4
-                 launches, and the cost counter's bound at the cut
+                 warm-up (CUDA events), tokens/s, peak GiB, B4 and
+                 slot decode launches, and the cost counter's bound at the cut
                  batch (``launch/dryrun.count_cell`` on meta) with the
                  measured time over it;
 42. cells_check  smollm-135m's prefill_32k step, depth cut to 2 layers,
@@ -254,7 +268,8 @@ first that fails:
                  and cache against the plain path, gated in float32;
 43. example_serving  the port's multi_tenant_serving example at full
                  width (smollm-135m, 32 requests, sjf): its lines, ms an
-                 iteration, tokens/s, B4 launches exactly 30 x prefills;
+                 iteration, tokens/s, B4 launches exactly 30 x prefills
+                 and slot decode 30 x decode iterations;
 44. example_train  the port's train_lm example, --preset full, 3 steps,
                  a checkpoint in a temporary directory: B4 2 x 30 x 3;
 45. dryrun       the one-card dry run (``python -m
@@ -275,6 +290,9 @@ first that fails:
 49. mesh_serve   full-width smollm-135m's prefill (2 x 4,096, B4) and
                  serve (8 sequences, 4,096-token cache) steps in serve
                  mode, beside the same units unsharded; float32 gate;
+                 and a cache split on S (DTensors, S on the model axis):
+                 auto and cuda raise and launch no slot kernel,
+                 impl='reference' equals the plain version;
 50. mesh_dp_int8  make_compressed_dp_grad_fn over NCCL on smollm-135m's
                  whole gradient tree: ms a step, int8 wire bytes, and
                  JAX's unbiasedness bound after 50 steps;
@@ -436,7 +454,8 @@ _BUILTIN_TYPES = {"f": "float", "i": "int", "b": "bool", "j": "unsigned"}
 def kernel_name(symbol):
     """A mangled kernel symbol's last name with its template arguments:
     ``flash_attention_bf16_kernel<64>``,
-    ``paged_decode_split_kernel<__nv_bfloat16,1,3,1>``."""
+    ``paged_decode_split_kernel<__nv_bfloat16,1,3,1>`` (an enum argument
+    as its value)."""
     mangled = re.match(r"_ZN?", symbol)
     i, name = (mangled.end() if mangled else len(symbol)), symbol
     while i < len(symbol) and symbol[i].isdigit():
@@ -450,8 +469,11 @@ def kernel_name(symbol):
         i += 1
         while i < len(symbol) and symbol[i] != "E":
             if symbol[i] == "L":                      # literal: L<type><value>E
-                j = symbol.index("E", i)
-                args.append(symbol[i + 2:j].replace("n", "-"))
+                # an enum's type is a nested name N...E, a builtin one letter
+                t = (symbol.index("E", i) + 1 if symbol[i + 1] == "N"
+                     else i + 2)
+                j = symbol.index("E", t)
+                args.append(symbol[t:j].replace("n", "-"))
                 i = j + 1
             elif symbol[i].isdigit():                 # a named type
                 j = i
@@ -802,6 +824,7 @@ def kernel_check_phase(dev):
                    for g, w in zip(grads["cuda"], grads["reference"])):
             fail(f"{name} gradients through the kernel vs plain autograd at "
                  f"the trainer's shape: max abs err {err}")
+    n_cases += slot_decode_checks(dev, worst)
     phase("kernel_check", cases=n_cases,
           max_abs_err={f"{k}/{d}": e for (k, d), e in worst.items()},
           tol={str(d).split(".")[-1]: t for d, t in TOL.items()},
@@ -910,6 +933,82 @@ def decode_split_checks(gen, dev, worst, scenes, tag=""):
     return n_cases
 
 
+# (B, S, H, Hk, D, softcap, fixed lengths, ring padding) of the slot
+# decode kernel's checks, by name: h2o-danube's cells (256 lanes over the
+# 1,090-slot ring, lengths drawn with 0 and S among them, a layer's view
+# of an [L, B, S, Hk, D] cache as the model passes it), whisper-large-v3's
+# cross-attention (D 64, 1,500 positions), paligemma-3b (8 q over 1 kv
+# head of 256), grok-1 (group 6, softcap 30), and the decode_32k cell's
+# 32k ring (the token axis split; its checks add lengths on and beside a
+# split's edge); a padded ring reads a view whose lane stride is not S
+# rows. tests/test_torch_cuda.py imports this table.
+SLOT_SCENES = {
+    "danube": (256, 1090, 32, 8, 80, None, (0, 1090, 1, 193), 0),
+    "whisper_cross": (8, 1500, 20, 20, 64, None, (1500,) * 8, 0),
+    "paligemma": (8, 640, 8, 1, 256, None, (0, 640, 289), 16),
+    "grok": (8, 512, 48, 8, 128, 30.0, (0, 512, 1), 8),
+    "decode_32k": (6, 32768, 9, 3, 64, None, (32768, 20007, 0), 0),
+}
+
+
+def slot_scene(gen, dev, B, S, H, Hk, D, fixed, pad, dtype):
+    """q, the K/V views of layer 1 of an [L, B, S + pad, Hk, D] cache
+    (the first S slots), and lengths: ``fixed`` first, the rest drawn
+    over [0, S]."""
+    ring = torch.randn(2, 2, B, S + pad, Hk, D, generator=gen,
+                       device=dev).to(dtype)
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
+    rest = torch.randint(0, S + 1, (B - len(fixed),), generator=gen,
+                         device=dev)
+    lens = torch.cat([torch.tensor(fixed, dtype=torch.long, device=dev),
+                      rest]).to(torch.int32)
+    return q, ring[0, 1, :, :S], ring[1, 1, :, :S], lens
+
+
+def slot_decode_checks(dev, worst):
+    """The slot decode kernel at ``SLOT_SCENES``, float32 and bf16,
+    against the plain version and ``ref.slot_decode_split_ref`` at the
+    same plan; two calls bit-identical, lanes of length 0 zeros, the
+    merge counters left at 0; worst errors under ``slot_decode``.
+    Returns the number of cases."""
+    from repro_torch.kernels import ops, paged_attention, ref
+    gen = torch.Generator(device=dev).manual_seed(26)
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (B, S, H, Hk, D, softcap, fixed, pad) in SLOT_SCENES.items():
+            per, n_splits = paged_attention.slot_plan(B, Hk, S)
+            if name == "decode_32k":
+                fixed = fixed + (per, per + 1)
+            q, k, v, lens = slot_scene(gen, dev, B, S, H, Hk, D, fixed, pad,
+                                       dtype)
+            kw = dict(logit_softcap=softcap)
+            got = ops.decode_attention(q, k, v, lens, impl="cuda", **kw)
+            again = ops.decode_attention(q, k, v, lens, impl="cuda", **kw)
+            want = ops.decode_attention(q, k, v, lens, impl="reference", **kw)
+            split = ref.slot_decode_split_ref(q, k, v, lens,
+                                              tokens_per_split=per, **kw)
+            torch.cuda.synchronize()
+            err = max(max_err(got, want), max_err(got, split))
+            key = ("slot_decode", str(dtype).split(".")[-1])
+            worst[key] = max(worst.get(key, 0.0), err)
+            n_cases += 1
+            if not (within(got, want, dtype) and within(got, split, dtype)):
+                fail(f"slot decode kernel vs plain, {name}: {dtype} plan "
+                     f"({per}, {n_splits}): max abs err {err} > tol "
+                     f"{TOL[dtype]}")
+            if not torch.equal(got, again):
+                fail(f"slot decode kernel not bit-identical across two "
+                     f"calls: {name} {dtype}")
+            if got[lens == 0].any():
+                fail(f"slot decode kernel: a length-0 lane is not zero "
+                     f"({name} {dtype})")
+            del q, k, v, got, again, want, split
+    for tickets in paged_attention._tickets.values():
+        if tickets.any():
+            fail("slot decode: a merge counter was left nonzero")
+    return n_cases
+
+
 def time_ms(fn, flush, reps=TIMING_REPS):
     """Median over ``reps`` of one call between CUDA events, after a
     warm-up, with L2 flushed before each call (the engine reaches each
@@ -977,7 +1076,9 @@ SMOLLM_HEADS = (9, 3, 64)
 MINITRON_8B_HEADS = (32, 8, 128)
 ZAMBA2_HEADS = (32, 32, 128)
 WHISPER_HEADS = (20, 20, 64)
-# paligemma-3b (group 8 at D 256) and grok-1-314b (group 6, softcap 30)
+# h2o-danube-1.8b (group 4, D 80); paligemma-3b (group 8 at D 256) and
+# grok-1-314b (group 6, softcap 30)
+DANUBE_HEADS = (32, 8, 80)
 PALIGEMMA_HEADS = (8, 1, 256)
 GROK_HEADS = (48, 8, 128)
 
@@ -1043,6 +1144,36 @@ def paged_decode_bound(q, lens, P, Hk, D):
     n_bytes = (2 * B * H * D * e + sum(lens) * Hk * D * 2 * e
                + sum(-(-n // P) for n in lens) * 4 + B * 4)
     return n_bytes, sum(4 * H * D * n for n in lens)
+
+
+def slot_decode_bound(q, lens, Hk, D):
+    """Bytes of q and out once each, each lane's ``lens`` K and V rows
+    once (2 x Hk x D values a slot: 2,560 bytes at h2o-danube's 8 kv
+    heads of 80 in bf16) and its length; 4 * H * D FLOPs a visible
+    (lane, slot)."""
+    e = q.element_size()
+    B, H, _ = q.shape
+    n_bytes = 2 * B * H * D * e + sum(lens) * Hk * D * 2 * e + B * 4
+    return n_bytes, sum(4 * H * D * n for n in lens)
+
+
+def slot_timing_scene(dev, B, S, heads, lens=None):
+    """The slot ring's decode call: ``B`` lanes over an ``S``-slot ring
+    (layer 1's view of an [L, B, S, Hk, D] cache), ``heads``, bf16.
+    Lengths ``lens``, or those of the h2o-danube paced cell's ring late
+    in a window: ~158 live lanes of 1-386 tokens (a mean of 193) and 98
+    free ones that have climbed to 500-1,090."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    H, Hk, D = heads
+    ring = torch.randn(2, 2, B, S, Hk, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    if lens is None:
+        live = torch.randint(1, 387, (158,), generator=gen, device=dev)
+        free = torch.randint(500, S + 1, (B - 158,), generator=gen, device=dev)
+        lens = torch.cat([live, free])
+    lens = torch.as_tensor(lens, device=dev).to(torch.int32)
+    return q, ring[0, 1], ring[1, 1], lens
 
 
 def flash_bound(q, k, causal=True, window=None, prefix_len=0):
@@ -1343,6 +1474,53 @@ def kernel_times_phase(dev):
             bytes=n_bytes, flops=flops))
         del q, k, v, sq, sk, sv, got, want
 
+    # the slot ring's decode call at the h2o-danube cells' shape is the
+    # table's row; the decode_32k cell's (32 lanes of 32,768 slots,
+    # smollm-135m's heads) and whisper-large-v3's cross-attention (8
+    # lanes of 1,500 encoder positions, 20 heads of 64) beside it. SDPA
+    # is timed as the port would call it in the kernel's place: on the
+    # layer cache's [B, Hk, S, D] transposed views, with the length mask
+    # built inside the timed call, over the whole ring (the same
+    # function); its kernels a call are counted beside it.
+    for B, S, heads, lens, path in (
+            (256, 1090, DANUBE_HEADS, None,
+             "slot-ring engine (decode), h2o-danube-1.8b cells"),
+            (32, 32768, SMOLLM_HEADS, [32768] * 32,
+             "decode_32k cell (smollm-135m)"),
+            (8, 1500, WHISPER_HEADS, [1500] * 8,
+             "w3 cross decode: slot-ring engine (whisper-large-v3)")):
+        q, k, v, lens = slot_timing_scene(dev, B, S, heads, lens)
+        args = (q, k, v, lens)
+        got = ops.decode_attention(*args, impl="cuda")
+        want = ops.decode_attention(*args, impl="reference")
+        err = max_err(got, want)
+        if not within(got, want, torch.bfloat16):
+            fail(f"slot decode kernel vs plain, {path}: max abs err {err}")
+        _, _, Hk, D = k.shape
+
+        def library(q=q, k=k, v=v, lens=lens, S=S):
+            mask = torch.arange(S, device=dev)[None] < lens.long()[:, None]
+            return sdpa(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                        attn_mask=mask[:, None, None],
+                        enable_gqa=True)[:, :, 0]
+
+        lib_err = max_err(library(), want)
+        n_bytes, flops = slot_decode_bound(q, lens.tolist(), Hk, D)
+        (rows if S == 1090 else extra).append(dict(
+            name="slot_decode_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_decode.cu",
+            replaces="none (src/repro/kernels/ops.py:67 is plain jnp)",
+            max_abs_err=err, path=path, batch=B, slots=S, heads=heads,
+            sum_lens=int(lens.sum()),
+            split_plan=paged_attention.slot_plan(B, Hk, S),
+            library_max_abs_err=lib_err,
+            library_kernels_per_call=kernels_per_call(library),
+            **timings(lambda: ops.decode_attention(*args, impl="cuda"),
+                      lambda: ops.decode_attention(*args, impl="reference"),
+                      library, flush, plain_reps=10),
+            bytes=n_bytes, flops=flops))
+        del q, k, v, got, want
+
     # the trainer's SSD call on mamba2-2.7b: batch 2 x 2048 tokens, 80
     # heads of 64, state 128, one group, chunk 256, bf16
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1412,6 +1590,7 @@ def kernel_times_phase(dev):
         del q, k, v, sq, sk, sv, got, want
 
     path = {"batched_paged_decode_attention": "paged engine (decode)",
+            "slot_decode_attention": "slot-ring engine (decode)",
             "paged_decode_attention": "none (no engine path)",
             "ssd_scan": "trainer (mamba2 forward)"}
     for r in rows + extra:
@@ -1451,7 +1630,21 @@ def kernel_counters():
         "paged_decode_attention": (paged_attention, "paged_decode_launches"),
         "flash_attention": (flash_attention, "launches"),
         "ssd_scan": (ssd_scan, "launches"),
+        "slot_decode_attention": (paged_attention, "slot_decode_launches"),
     }
+
+
+def decode_attention_per_step(cfg):
+    """``ops.decode_attention`` calls, each one slot decode launch, in
+    one slot-ring decode step: one an attention layer (zamba2: one an
+    application of the shared block; whisper: self- and
+    cross-attention a layer), none for Mamba-2."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        from repro_torch.models import hybrid
+        return len(hybrid._app_positions(cfg))
+    return 2 * cfg.n_layers if cfg.family == "encdec" else cfg.n_layers
 
 
 def reset_launches() -> None:
@@ -1534,14 +1727,15 @@ def paged_engine_run(label, cfg, params, dev, **fields):
             fail(f"{label}: flash launches {launches} != {cfg.n_layers} x "
                  f"{prefills} single-shot prefills")
         other = ("paged_decode_attention", "chunked_prefill_attention",
-                 "ssd_scan")
+                 "ssd_scan", "slot_decode_attention")
     else:
         if eng.n_prefill_launches <= 0 or \
                 launches["chunked_prefill_attention"] != \
                 cfg.n_layers * eng.n_prefill_launches:
             fail(f"{label}: prefill launches {launches} != {cfg.n_layers} x "
                  f"{eng.n_prefill_launches} prefill chunks")
-        other = ("paged_decode_attention", "flash_attention", "ssd_scan")
+        other = ("paged_decode_attention", "flash_attention", "ssd_scan",
+                 "slot_decode_attention")
     if any(launches[k] for k in other):
         fail(f"{label}: the paged engine launched a kernel of another path: "
              f"{launches}")
@@ -1575,9 +1769,11 @@ def engine_slot_phase(cfg, params, dev, label="engine_slot",
     each admission prefills its bucket in one shot (one flash-attention
     launch per attention layer: ``flash_per_prefill``, default
     ``n_layers``; 0 for an SSM), then decodes from the contiguous cache
-    (or the O(1) states). ``gen_kw`` goes to the request generator."""
+    (one slot decode launch per ``decode_attention_per_step``) or the
+    O(1) states. ``gen_kw`` goes to the request generator."""
     if flash_per_prefill is None:
         flash_per_prefill = cfg.n_layers
+    slot_per_decode = decode_attention_per_step(cfg)
     eng, sched, reqs = serve(cfg, params, dev, ecfg, 24, 0,
                              **(gen_kw or {}))
     metrics, wall, launches = drain(eng)
@@ -1608,7 +1804,12 @@ def engine_slot_phase(cfg, params, dev, label="engine_slot",
     if launches["flash_attention"] != flash_per_prefill * prefills:
         fail(f"{label}: flash launches {launches} != {flash_per_prefill} x "
              f"{prefills} prefills")
-    others = {k: n for k, n in launches.items() if k != "flash_attention"}
+    if launches["slot_decode_attention"] != \
+            slot_per_decode * eng.n_decode_launches:
+        fail(f"{label}: slot decode launches {launches} != "
+             f"{slot_per_decode} x {eng.n_decode_launches} decode iterations")
+    others = {k: n for k, n in launches.items()
+              if k not in ("flash_attention", "slot_decode_attention")}
     if any(others.values()):
         fail(f"{label}: the slot-ring engine launched a kernel of another "
              f"path: {others}")
@@ -1705,8 +1906,8 @@ def check_logits(label, kern, plain, plain32, kern32=None, **fields):
 
 def engine_slot_check_phase(cfg, params, dev):
     """One full-width prefill of four 256-token prompts (flash kernel)
-    and one decode step from the cache it made, against the same calls
-    through the plain versions."""
+    and one decode step from the cache it made (slot decode kernel),
+    against the same calls through the plain versions."""
     from repro_torch.kernels import ref
     from repro_torch.models import transformer
     plain_flash = ref.flash_attention_chunked
@@ -1718,12 +1919,13 @@ def engine_slot_check_phase(cfg, params, dev):
         p = params if dtype is None else _cast(params, dtype)
         c = cfg if dtype is None else cfg.replace(dtype="float32")
         lp, cache = transformer.prefill(c, p, tokens, max_len=512, impl=impl)
-        ld, _ = transformer.decode_step(c, p, cache, step, 256)
+        ld, _ = transformer.decode_step(c, p, cache, step, 256, impl=impl)
         return lp.float(), ld.float()
 
     reset_launches()
     kern = run("auto", None)
     n_flash = read_launches()["flash_attention"]
+    n_slot = read_launches()["slot_decode_attention"]
     plain, plain32 = run("reference", None), run("reference", torch.float32)
     kern32 = run("auto", torch.float32)
     # the gate's resolution: the plain path again with its online softmax
@@ -1736,9 +1938,9 @@ def engine_slot_check_phase(cfg, params, dev):
             reordered = run("reference", None)
         spread[block_kv] = max(max_err(a, b) for a, b in zip(reordered, plain))
     torch.cuda.synchronize()
-    if n_flash != cfg.n_layers:
-        fail(f"engine_slot_check: {n_flash} flash launches for one "
-             f"{cfg.n_layers}-layer prefill")
+    if n_flash != cfg.n_layers or n_slot != cfg.n_layers:
+        fail(f"engine_slot_check: {n_flash} flash and {n_slot} slot decode "
+             f"launches for one {cfg.n_layers}-layer prefill and decode step")
     check_logits("engine_slot_check", kern, plain, plain32,
                  plain_reordered_max_abs_logit_err=spread)
     # ROADMAP B0: a float32 gate beside the bf16 one
@@ -1986,7 +2188,8 @@ def engine_zamba2_phases(dev, card):
 
     def run(p, c, impl):
         lp, cache = hybrid.prefill(c, p, tokens, max_len=512, impl=impl)
-        ld, _ = hybrid.decode_step(c, p, cache, step, cache["lens"])
+        ld, _ = hybrid.decode_step(c, p, cache, step, cache["lens"],
+                                   impl=impl)
         return lp.float(), ld.float()
 
     reset_launches()
@@ -1995,9 +2198,11 @@ def engine_zamba2_phases(dev, card):
     plain, plain32 = run(params, cfg, "reference"), run(p32, c32, "reference")
     kern32 = run(p32, c32, "auto")
     torch.cuda.synchronize()
-    if {k: n for k, n in launches.items() if n} != {"flash_attention": n_apps}:
+    if {k: n for k, n in launches.items() if n} != {
+            "flash_attention": n_apps, "slot_decode_attention": n_apps}:
         fail(f"engine_zamba2_check: launches {launches}, want {n_apps} "
-             "flash launches for one prefill")
+             "flash launches for one prefill and as many slot decode "
+             "launches for one decode step")
     check_logits("engine_zamba2_check", kern, plain, plain32, kern32=kern32,
                  arch=cfg.name, n_layers=cfg.n_layers, applications=n_apps,
                  launches=launches, card=card)
@@ -2045,7 +2250,8 @@ def engine_whisper_phases(dev, card):
         lp, cache = encdec.prefill(c, p, tokens, frames=frames,
                                    max_len=WHISPER_ENGINE["max_len"],
                                    impl=impl)
-        ld, _ = encdec.decode_step(c, p, cache, step, cache["lens"])
+        ld, _ = encdec.decode_step(c, p, cache, step, cache["lens"],
+                                   impl=impl)
         return lp.float(), ld.float()
 
     reset_launches()
@@ -2054,10 +2260,11 @@ def engine_whisper_phases(dev, card):
     plain, plain32 = run(params, cfg, "reference"), run(p32, c32, "reference")
     kern32 = run(p32, c32, "auto")
     torch.cuda.synchronize()
-    if {k: n for k, n in launches.items() if n} != \
-            {"flash_attention": per_prefill}:
-        fail(f"engine_whisper_check: launches {launches}, want "
-             f"{per_prefill} flash launches for one prefill")
+    want = {"flash_attention": per_prefill,
+            "slot_decode_attention": decode_attention_per_step(cfg)}
+    if {k: n for k, n in launches.items() if n} != want:
+        fail(f"engine_whisper_check: launches {launches}, want {want} for "
+             f"one prefill and one decode step")
     check_logits("engine_whisper_check", kern, plain, plain32, kern32=kern32,
                  arch=cfg.name, n_layers=cfg.n_layers,
                  n_enc_layers=cfg.n_enc_layers, batch=4, tokens=128,
@@ -2821,6 +3028,7 @@ def cell_phase(dev, card, arch, shape_name, batch):
     rf = rec["roofline"]
     bound_io = max(rf["compute_s"], rf["memory_io_lower_s"])
     flash = flash_per_step(cfg, shape.kind)
+    slot = decode_attention_per_step(cfg) if shape.kind == "decode" else 0
     steps = CELL_REPS + 1
     phase(label, arch=arch, shape=shape_name, kind=shape.kind, **fields,
           n_layers=cfg.n_layers, dtype=cfg.dtype,
@@ -2828,6 +3036,7 @@ def cell_phase(dev, card, arch, shape_name, batch):
           seq_len=L, step_s=t, step_s_all=times, tokens_per_s=n_tokens / t,
           peak_gib=peak, flash_launches=launches["flash_attention"],
           flash_per_step=launches["flash_attention"] / steps,
+          slot_decode_per_step=launches["slot_decode_attention"] / steps,
           launches=launches, flops=rec["cost_analysis"]["flops"],
           bytes=rec["cost_analysis"]["bytes accessed"],
           model_flops=rf["model_flops_total"],
@@ -2838,10 +3047,13 @@ def cell_phase(dev, card, arch, shape_name, batch):
           count_s=rec["run_s"])
     if not ok:
         fail(f"{label}: output out of range or not finite: {out}")
-    if launches["flash_attention"] != flash * steps or \
-            any(n for k, n in launches.items() if k != "flash_attention"):
-        fail(f"{label}: launches {launches}, want {flash} flash launches a "
-             f"step over {steps} steps and no other kernel")
+    want = {"flash_attention": flash * steps,
+            "slot_decode_attention": slot * steps}
+    if {k: n for k, n in launches.items() if n} != \
+            {k: n for k, n in want.items() if n}:
+        fail(f"{label}: launches {launches}, want {flash} flash and {slot} "
+             f"slot decode launches a step over {steps} steps and no other "
+             f"kernel")
     del params, run, out
     torch.cuda.empty_cache()
 
@@ -2900,7 +3112,8 @@ def example_serving_phase(dev, card):
     """The port's multi_tenant_serving example as a user runs it on the
     card (full-width smollm-135m, 32 requests, sjf), launch counts set
     to 0 just before and read just after: every request completes, B4
-    launched 30 x prefills, no other kernel."""
+    launched 30 x prefills, the slot decode 30 x decode iterations, no
+    other kernel."""
     from repro_torch.examples import multi_tenant_serving
     reset_launches()
     eng, wall = multi_tenant_serving.main(
@@ -2919,10 +3132,11 @@ def example_serving_phase(dev, card):
               "flash_attention"], launches=launches)
     if len(done) != 32 or prefills != 32:
         fail(f"example_serving: {len(done)} completed, {prefills} prefills")
-    if launches["flash_attention"] != eng.cfg.n_layers * prefills or \
-            any(n for k, n in launches.items() if k != "flash_attention"):
-        fail(f"example_serving: launches {launches}, want "
-             f"{eng.cfg.n_layers} x {prefills} flash launches only")
+    want = {"flash_attention": eng.cfg.n_layers * prefills,
+            "slot_decode_attention":
+                eng.cfg.n_layers * eng.n_decode_launches}
+    if {k: n for k, n in launches.items() if n} != want:
+        fail(f"example_serving: launches {launches}, want {want} only")
     del eng
     torch.cuda.empty_cache()
 
@@ -3156,6 +3370,45 @@ def mesh_train_ssd_phase(dev, card, mesh):
         fail(f"mesh_train_ssd: launches {launches}, want {want} SSD calls")
 
 
+def seq_split_dispatch(dev, mesh):
+    """``ops.decode_attention`` on a cache split on S on the card (K/V
+    DTensors sharded on S over the model axis, h2o-danube's heads,
+    float32): ``auto`` and ``cuda`` raise, since the slot kernel cannot
+    reduce across ranks, and launch nothing; ``impl='reference'`` runs
+    the plain DTensor ops, against the plain version on the tensors."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels import ops, paged_attention, ref
+    from repro_torch.launch import sharded
+    gen = torch.Generator(device=dev).manual_seed(CELL_SEED + 3)
+    B, S, (H, Hk, D) = 8, 256, DANUBE_HEADS
+    q, k, v = (torch.randn(*shape, generator=gen, device=dev) for shape in
+               ((B, H, D), (B, S, Hk, D), (B, S, Hk, D)))
+    lens = torch.tensor([0, 1, 17, 255, 256, 100, 3, 64], dtype=torch.int32,
+                        device=dev)
+    rep = [Replicate(), Replicate()]
+    args = (distribute_tensor(q, mesh, rep),
+            *(distribute_tensor(t, mesh, [Replicate(), Shard(1)])
+              for t in (k, v)),
+            distribute_tensor(lens, mesh, rep))
+    before = paged_attention.slot_decode_launches
+    raised = {}
+    with sharded.on_mesh(mesh):
+        for impl in ("auto", "cuda"):
+            try:
+                ops.decode_attention(*args, impl=impl)
+            except ValueError as e:
+                raised[impl] = "impl='reference'" in str(e)
+        got = ops.decode_attention(*args, impl="reference").full_tensor()
+    torch.cuda.synchronize()
+    err = max_err(got, ref.decode_attention_ref(q, k, v, lens))
+    out = dict(raised=raised, reference_err=err,
+               slot_launches=paged_attention.slot_decode_launches - before)
+    if (raised != {"auto": True, "cuda": True} or out["slot_launches"]
+            or err > TOL[torch.float32][0]):
+        fail(f"mesh_serve: a cache split on S on the card: {out}")
+    return out
+
+
 def mesh_serve_phase(dev, card, mesh):
     """Full-width smollm-135m's serving units on the 1x1 mesh in serve
     mode: make_prefill_step at 2 x 4,096 (B4, 30 launches) and
@@ -3254,11 +3507,14 @@ def mesh_serve_phase(dev, card, mesh):
           launches=launches,
           flash_per_prefill=launches["flash_attention"] / 4,
           gated_on="float32", tokens_equal=same, max_abs_err=errs,
-          tol=MESH_CACHE_TOL, peak_gib=peak_gb())
-    if launches["flash_attention"] != 4 * cfg.n_layers or \
-            any(n for k, n in launches.items() if k != "flash_attention"):
+          tol=MESH_CACHE_TOL, seq_split=seq_split_dispatch(dev, mesh),
+          peak_gib=peak_gb())
+    want = {"flash_attention": 4 * cfg.n_layers,
+            "slot_decode_attention": 4 * cfg.n_layers}
+    if {k: n for k, n in launches.items() if n} != want:
         fail(f"mesh_serve: launches {launches}, want {cfg.n_layers} flash "
-             f"launches a prefill over 4 prefills")
+             f"launches a prefill and {cfg.n_layers} slot decode launches "
+             f"a decode step, over 4 of each")
     if not all(same.values()) or not close:
         fail(f"mesh_serve: sharded units off the unsharded ones: {same} "
              f"{errs}")
@@ -3510,7 +3766,8 @@ def run_phases(procs, dry_dir, dry_mesh_dir, t_start) -> int:
                "chunked_prefill_attention": paged_launches,
                "paged_decode_attention": paged_launches,
                "flash_attention": slot_launches,
-               "ssd_scan": train_launches}
+               "ssd_scan": train_launches,
+               "slot_decode_attention": slot_launches}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in rows:

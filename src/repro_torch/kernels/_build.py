@@ -43,11 +43,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every entry point: source -> {symbol: argtypes}
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "paged_decode": {
         "batched_paged_decode_launch": [_P] * 10 + [_I] * 9 + [_F, _F, _I, _P],
         "paged_decode_launch": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
+        "slot_decode_launch": [_P] * 7 + [_I] * 7 + [_L, _L] + [_F, _F, _I, _P],
     },
     "chunked_prefill": {
         "chunked_prefill_launch": [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P],

@@ -1,5 +1,6 @@
-// Paged decode attention for Hopper (sm_90a), two entry points on one
-// split-page (flash-decoding) body.
+// Decode attention for Hopper (sm_90a): three entry points on one
+// split-page (flash-decoding) body, two over the paged pool and one over
+// the slot ring's contiguous cache.
 //
 // Replaces: src/repro/kernels/paged_attention.py::batched_paged_decode_attention
 // (Pallas body _batched_kernel; entry batched_paged_decode_launch) and
@@ -14,6 +15,19 @@
 // tokens only (a seq_len of 0 gives zeros). Optional logit softcap.
 // Float32 scores, softmax and sums; output in q's dtype.
 //
+// The slot form (kSlot, entry slot_decode_launch) replaces no TPU kernel:
+// the JAX package's contiguous-cache decode
+// (src/repro/kernels/ops.py::decode_attention) is plain jnp. It was
+// added because the plain PyTorch version casts each layer's whole
+// [B, S_ring, Hk, D] ring to float32 and attends every position of
+// every lane. Here lane b's token t sits at b * b_stride + t * s_stride
+// (a layer's view of the [L, B, S_ring, Hk, D] cache, read in place),
+// and a lane attends [0, min(len, S_ring)) only: bf16 rows read once,
+// trimmed to each lane's length, never copied. It is the per-sequence
+// form with pages of one token and no table. It takes no window: a ring
+// holds only the positions inside a model's window, so no caller masks
+// one. A len of 0 gives zeros.
+//
 // What bounds it on this card: bytes, then latency. Each (sequence, kv
 // head) streams its K/V once and does 4 * group FLOPs per value read,
 // far under the H100's ~295 FLOP/byte ridge; with a GQA group of 3,
@@ -23,11 +37,16 @@
 // dependent memory trips (length, page id, K/V, partial, ticket,
 // partials) sets its time, ~10 us. At 2,000 tokens the bound is 3.6 us
 // and the kernel takes ~19 us (PERF.md): each block's few load-then-use
-// steps are latency-bound at 3 blocks an SM.
+// steps are latency-bound at 3 blocks an SM. The slot ring of the
+// h2o-danube cells (256 lanes, 8 kv heads of 80, up to 1,090 tokens) is
+// 2,048 blocks of one split each, a few waves of 4 blocks an SM; there
+// too the token loop's latency, not the bytes, sets the time (~30% of
+// the byte bound, PERF.md).
 //
 // What the design does about it:
-// * The page axis is split across blocks. The grid is (S, Hk x head
-//   chunks, B): block `split` takes pages [split * pages_per_split,
+// * The page axis (the slot form: the token axis) is split across
+//   blocks. The grid is (S, Hk x head chunks, B), S the number of
+//   splits: block `split` takes pages [split * pages_per_split,
 //   +pages_per_split) of its sequence, whole pages, up to
 //   min(n_page_steps, ceil(seq_len / P)). The wrapper's split_plan
 //   picks pages_per_split so the grid fills the SMs. A block past a
@@ -102,7 +121,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // partial weighs 0 and never makes a NaN.
 __device__ __forceinline__ float safe_max(float m) { return m == -INFINITY ? 0.f : m; }
 
-template <typename T, bool kFused, int kG, int kNV>
+// How a block finds its tokens' K/V rows: through the page table, with
+// or without the fused token, or at a lane's stride in the slot ring.
+enum class Addr { kPaged, kPagedFused, kSlot };
+
+// The slot form's bf16 bodies of 3-4 query heads a block keep 2 tokens in
+// flight per lane group, not 4: the registers that frees lets more
+// blocks share an SM, which hides more of the token loop's dependent
+// shuffles and exps (h2o-danube's cell shape on an H100: 192 -> 128
+// registers, 2 -> 4 blocks an SM, 0.44 -> 0.30 ms a call). The paged
+// forms keep their instantiations as they were.
+template <typename T, Addr kAddr, int kG, int kNV>
+constexpr bool kSlotNarrow = kAddr == Addr::kSlot && Vec<T>::kN == 8 &&
+                             kNV == 1 && kG >= 3 && kG <= 4;
+
+template <typename T, Addr kAddr, int kG, int kNV>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_split_kernel(const T* __restrict__ q,           // [B, H, D]
                           const T* __restrict__ kp,          // [n_pages, P, Hk, D]
@@ -116,11 +149,15 @@ paged_decode_split_kernel(const T* __restrict__ q,           // [B, H, D]
                           int* __restrict__ tickets,         // [B, Hk x head chunks]
                           int H, int Hk, int D, int P, int pps, int n_page_steps,
                           int pages_per_split, int lt_log2, float scale,
-                          float softcap) {
+                          float softcap, long long b_stride,
+                          long long s_stride) {
+  constexpr bool kFused = kAddr == Addr::kPagedFused;
+  constexpr bool kSlot = kAddr == Addr::kSlot;
   constexpr int kVec = Vec<T>::kN;
   // tokens in flight per lane group: fewer where the queries and sums
   // already hold many registers
-  constexpr int kU = kG * kNV * kVec > 32 ? 2 : 4;
+  constexpr int kU =
+      kG * kNV * kVec > 32 || kSlotNarrow<T, kAddr, kG, kNV> ? 2 : 4;
   const int S = gridDim.x;
   const int split = blockIdx.x;
   const int b = blockIdx.z;
@@ -137,6 +174,7 @@ paged_decode_split_kernel(const T* __restrict__ q,           // [B, H, D]
   const int n_vec = D / kVec;         // 16-byte vectors per row
 
   // this split's tokens: whole pages, none past the sequence's last page
+  // (the slot form: pages of one token)
   const int seq_len = max(seq_lens[b], 0);
   const int steps = min(n_page_steps, (seq_len + P - 1) / P);
   const int kv_len = min(seq_len, steps * P);
@@ -179,7 +217,12 @@ paged_decode_split_kernel(const T* __restrict__ q,           // [B, H, D]
       const T* krow = k_new;
       const T* vrow = v_new;
       if (valid[u]) {
-        if (!kFused || i < n_pool) {
+        if constexpr (kSlot) {
+          const size_t off = (size_t)b * b_stride +
+                             (size_t)(t_begin + i) * s_stride + (size_t)kvh * D;
+          krow = kp + off;
+          vrow = vp + off;
+        } else if (!kFused || i < n_pool) {
           const int tok = t_begin + i;
           const int page = __ldg(page_table + (size_t)b * pps + tok / P);
           const size_t off = (((size_t)page * P + tok % P) * Hk + kvh) * D;
@@ -400,16 +443,17 @@ struct Args {
   void *out, *partials, *tickets;
   int B, H, Hk, D, P, pps, n_page_steps, pages_per_split, n_splits;
   float scale, softcap;
+  long long b_stride, s_stride;  // the slot form's; 0 for the pool
 };
 
-template <typename T, bool kFused, int kG, int kNV>
+template <typename T, Addr kAddr, int kG, int kNV>
 int launch(const Args& a, int lt_log2, cudaStream_t stream) {
   const int group = a.H / a.Hk;
   const int n_hc = (group + kG - 1) / kG;
   // the warps' states, then (in the merging block) the splits' weights
   const size_t smem = sizeof(float) * max(kWarps * kG * (a.D + 2),
                                           (2 * a.n_splits + 1) * kG);
-  auto kernel = paged_decode_split_kernel<T, kFused, kG, kNV>;
+  auto kernel = paged_decode_split_kernel<T, kAddr, kG, kNV>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -420,22 +464,23 @@ int launch(const Args& a, int lt_log2, cudaStream_t stream) {
       (const T*)a.q, (const T*)a.kp, (const T*)a.vp, (const int*)a.page_table,
       (const int*)a.seq_lens, (const T*)a.k_new, (const T*)a.v_new, (T*)a.out,
       (float*)a.partials, (int*)a.tickets, a.H, a.Hk, a.D, a.P, a.pps,
-      a.n_page_steps, a.pages_per_split, lt_log2, a.scale, a.softcap);
+      a.n_page_steps, a.pages_per_split, lt_log2, a.scale, a.softcap,
+      a.b_stride, a.s_stride);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kFused, int kNV>
+template <typename T, Addr kAddr, int kNV>
 int by_group(const Args& a, int lt_log2, cudaStream_t s) {
   switch (a.H / a.Hk) {
-    case 1: return launch<T, kFused, 1, kNV>(a, lt_log2, s);
-    case 2: return launch<T, kFused, 2, kNV>(a, lt_log2, s);
-    case 3: return launch<T, kFused, 3, kNV>(a, lt_log2, s);
-    case 4: return launch<T, kFused, 4, kNV>(a, lt_log2, s);
-    default: return launch<T, kFused, 8, kNV>(a, lt_log2, s);
+    case 1: return launch<T, kAddr, 1, kNV>(a, lt_log2, s);
+    case 2: return launch<T, kAddr, 2, kNV>(a, lt_log2, s);
+    case 3: return launch<T, kAddr, 3, kNV>(a, lt_log2, s);
+    case 4: return launch<T, kAddr, 4, kNV>(a, lt_log2, s);
+    default: return launch<T, kAddr, 8, kNV>(a, lt_log2, s);
   }
 }
 
-template <typename T, bool kFused>
+template <typename T, Addr kAddr>
 int dispatch(const Args& a, cudaStream_t s) {
   const int n_splits_needed = (a.n_page_steps + a.pages_per_split - 1) /
                               max(a.pages_per_split, 1);
@@ -444,20 +489,25 @@ int dispatch(const Args& a, cudaStream_t s) {
       a.n_splits != n_splits_needed || a.B > 65535 ||
       (a.n_splits > 1 && (a.partials == nullptr || a.tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
+  // slot rows start on 16 bytes when the base does (the wrapper's check)
+  if (kAddr == Addr::kSlot &&
+      (a.P != 1 || a.b_stride < 0 || a.s_stride < 0 ||
+       a.b_stride % Vec<T>::kN || a.s_stride % Vec<T>::kN))
+    return (int)cudaErrorInvalidValue;
   const int n_vec = a.D / Vec<T>::kN;
   int lt_log2 = 0;
   while ((1 << lt_log2) < n_vec && lt_log2 < 5) ++lt_log2;
   if constexpr (Vec<T>::kN == 4) {  // float32 rows past 128 values
-    if (n_vec > 32) return by_group<T, kFused, 2>(a, lt_log2, s);
+    if (n_vec > 32) return by_group<T, kAddr, 2>(a, lt_log2, s);
   }
-  return by_group<T, kFused, 1>(a, lt_log2, s);
+  return by_group<T, kAddr, 1>(a, lt_log2, s);
 }
 
-template <bool kFused>
+template <Addr kAddr>
 int run(const Args& a, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float, kFused>(a, s);
-  return dispatch<__nv_bfloat16, kFused>(a, s);
+  if (dtype == 0) return dispatch<float, kAddr>(a, s);
+  return dispatch<__nv_bfloat16, kAddr>(a, s);
 }
 
 }  // namespace
@@ -478,8 +528,9 @@ extern "C" int batched_paged_decode_launch(
     void* stream) {
   const Args a{q, k_pages, v_pages, page_table, seq_lens, k_new, v_new,
                out, partials, tickets, B, H, Hk, D, page_size, pages_per_seq,
-               n_page_steps, pages_per_split, n_splits, scale, softcap};
-  return run<true>(a, dtype, stream);
+               n_page_steps, pages_per_split, n_splits, scale, softcap,
+               0, 0};
+  return run<Addr::kPagedFused>(a, dtype, stream);
 }
 
 // The per-sequence form: no fused token, the splits over every page of
@@ -492,6 +543,24 @@ extern "C" int paged_decode_launch(
     float softcap, int dtype, void* stream) {
   const Args a{q, k_pages, v_pages, page_table, seq_lens, nullptr, nullptr,
                out, partials, tickets, B, H, Hk, D, page_size, pages_per_seq,
-               pages_per_seq, pages_per_split, n_splits, scale, softcap};
-  return run<false>(a, dtype, stream);
+               pages_per_seq, pages_per_split, n_splits, scale, softcap,
+               0, 0};
+  return run<Addr::kPaged>(a, dtype, stream);
+}
+
+// The slot form: the contiguous cache k/v, lane b's token t at element
+// b * b_stride + t * s_stride (+ kv head * D; each (Hk, D) row block
+// contiguous, strides multiples of 16 bytes), cache_len[b] valid tokens
+// of S. The splits of tokens_per_split tile [0, S), n_splits =
+// ceil(S / tokens_per_split). A cache_len of 0 gives zeros. Same
+// conventions otherwise.
+extern "C" int slot_decode_launch(
+    const void* q, const void* k, const void* v, const void* cache_len,
+    void* out, void* partials, void* tickets, int B, int H, int Hk, int D,
+    int S, int tokens_per_split, int n_splits, long long b_stride,
+    long long s_stride, float scale, float softcap, int dtype, void* stream) {
+  const Args a{q, k, v, nullptr, cache_len, nullptr, nullptr, out, partials,
+               tickets, B, H, Hk, D, 1, 0, S, tokens_per_split, n_splits,
+               scale, softcap, b_stride, s_stride};
+  return run<Addr::kSlot>(a, dtype, stream);
 }

@@ -52,6 +52,7 @@ from .flash_attention import flash_attention as _flash_cuda
 from .paged_attention import (
     batched_paged_decode_attention as _batched_paged_cuda,
     paged_decode_attention as _paged_cuda,
+    slot_decode_attention as _slot_decode_cuda,
 )
 from .ssd_scan import ssd_scan as _ssd_cuda
 
@@ -281,6 +282,21 @@ def ssd(
     return ref.ssd_chunked(x, a, b, c, chunk=chunk)
 
 
+def _decode_attention(q, k_cache, v_cache, cache_len, window,
+                      logit_softcap, impl):
+    """One device's contiguous-cache decode: the slot kernel or the
+    plain version, by ``impl``."""
+    if _use_kernel(impl, q):
+        if window is not None:
+            raise ValueError("the slot kernel takes no window (a ring holds "
+                             "only the window's positions): pass "
+                             "impl='reference' for a windowed mask")
+        return _slot_decode_cuda(q, k_cache, v_cache, cache_len,
+                                 logit_softcap=logit_softcap)
+    return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                    window=window, logit_softcap=logit_softcap)
+
+
 def decode_attention(
     q: torch.Tensor,            # [B, H, D]
     k_cache: torch.Tensor,      # [B, S, Hk, D]
@@ -289,14 +305,24 @@ def decode_attention(
     *,
     window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
+    impl: Impl = "auto",
 ) -> torch.Tensor:
-    """Single-token decode against a contiguous per-sequence cache.
-    Plain PyTorch on every device: the JAX package has no Pallas kernel
-    for it either (a memory-bound gather and GEMV). On a mesh whose
-    cache keeps S whole, each rank attends its batch rows' heads
-    (``local_map``, as ``attention``); a cache split on S (kv heads that
-    do not divide the model axis) runs the plain ops on DTensors, which
-    reduce the softmax over S across the ranks."""
+    """Single-token decode against a contiguous per-sequence cache (the
+    slot ring; see ``paged_attention.slot_decode_attention``): the slot
+    kernel, which reads each lane's ``cache_len`` entries in place in
+    the cache's dtype, for CUDA tensors, the plain float32 version
+    otherwise. The JAX package has no kernel here (its plain ``jnp``
+    form). The kernel takes no ``window``: a ring holds only the
+    positions inside a model's window, so no model path passes one, and
+    a window on CUDA tensors needs ``impl='reference'``. On a mesh whose
+    cache keeps S whole, each rank attends its batch rows' heads through
+    ``local_map`` with the same dispatch on its local tensors, as
+    ``attention``. A cache split on S (kv heads that do not divide the
+    model axis) has no kernel: the kernel cannot reduce the softmax
+    across ranks. There the plain ops run on DTensors, which reduce
+    over S across the ranks, only where the caller asks for them
+    (``impl='reference'``) or the tensors are not on CUDA; ``auto`` and
+    ``cuda`` raise on CUDA tensors."""
     seq_split = isinstance(k_cache, DTensor) and any(
         isinstance(pl, Shard) and pl.dim == 1 for pl in k_cache.placements)
     if isinstance(q, DTensor) and not seq_split:
@@ -308,17 +334,20 @@ def decode_attention(
 
         def local(ql, kl, vl, nl):
             kl, vl = _local_groups(mesh, split, H, ql.shape[1], Hk, (kl, vl), 2)
-            return ref.decode_attention_ref(ql, kl, vl, nl, window=window,
-                                            logit_softcap=logit_softcap)
+            return _decode_attention(ql, kl, vl, nl, window, logit_softcap,
+                                     impl)
 
         return local_map(local, out_placements=q_pl,
                          in_placements=(q_pl, kv_pl, kv_pl, len_pl),
                          device_mesh=mesh, redistribute_inputs=True)(
             *(_on_mesh(t, mesh) for t in (q, k_cache, v_cache, cache_len)))
+    if seq_split and _use_kernel(impl, q):
+        raise ValueError("a cache split on S has no kernel (the slot kernel "
+                         "cannot reduce the softmax across ranks): pass "
+                         "impl='reference' for the plain DTensor ops")
     with get_recorder().span(tr.OPS_DECODE_ATTENTION):
-        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
-                                        window=window,
-                                        logit_softcap=logit_softcap)
+        return _decode_attention(q, k_cache, v_cache, cache_len, window,
+                                 logit_softcap, impl)
 
 
 def paged_decode_attention(

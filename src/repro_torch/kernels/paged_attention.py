@@ -1,5 +1,7 @@
-"""Paged decode attention: the batched form (one engine iteration's
-whole decode set in a single kernel launch) and the per-sequence form.
+"""Decode attention on the CUDA split decode body: the paged batched
+form (one engine iteration's whole decode set in a single kernel
+launch), the paged per-sequence form, and the slot ring's contiguous
+form.
 
 Port of the JAX package's ``kernels/paged_attention.py::
 batched_paged_decode_attention``. Each sequence's one new token attends
@@ -15,7 +17,15 @@ same body without the fused token and without the trim, attending the
 ``seq_lens`` resident tokens over every page they fill. No model path
 calls it; it is held against its plain version on the card.
 
-Both launch the split-page body of ``csrc/paged_decode.cu``
+:func:`slot_decode_attention` is the slot-ring engine's decode
+attention (``ops.decode_attention``; the JAX package has no kernel for
+it): one token per lane attends its ``cache_len`` entries of a
+contiguous ``[B, S, Hk, D]`` cache, read in place through its strides
+(a layer's view of the ``[L, B, S, Hk, D]`` cache), trimmed to each
+lane's length on the device. :func:`slot_plan` plans it from the shapes
+alone, as :func:`split_plan` with pages of one token.
+
+All three launch the split-page body of ``csrc/paged_decode.cu``
 (flash-decoding): :func:`split_plan` cuts the page axis into ``S`` runs
 of whole pages, one block per (sequence, kv head, run), so a small
 batch still fills the card; each block writes a float32 partial
@@ -28,7 +38,7 @@ is the plain version of that arithmetic.
 On a CUDA tensor each wrapper launches its entry of
 ``csrc/paged_decode.cu`` or raises; on a CPU tensor it runs the plain
 version (``ref.batched_paged_decode_attention_ref``,
-``ref.paged_decode_attention_ref``).
+``ref.paged_decode_attention_ref``, ``ref.decode_attention_ref``).
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ from . import _build, ref
 launches = 0
 #: per-sequence-kernel launches on CUDA tensors
 paged_decode_launches = 0
+#: slot-ring (contiguous cache) kernel launches on CUDA tensors
+slot_decode_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -74,6 +86,13 @@ def split_plan(B: int, Hk: int, n_page_steps: int, page_size: int
     return per, -(-n_page_steps // per)
 
 
+def slot_plan(B: int, Hk: int, S: int) -> Tuple[int, int]:
+    """``(tokens_per_split, n_splits)`` of the slot kernel: a lane's
+    ``S`` slots cut as :func:`split_plan` cuts a page axis of one-token
+    pages. Python ints only: never reads the lengths."""
+    return split_plan(B, Hk, S, 1)
+
+
 def _launch_buffers(q: torch.Tensor, S: int, stream: int
                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """This launch's float32 partials (``B * H * S * (D + 2)`` values)
@@ -98,29 +117,62 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def check_operands(q: torch.Tensor, k_pages: torch.Tensor,
-                   v_pages: torch.Tensor, *others: torch.Tensor) -> None:
-    """Devices, shapes and types the CUDA kernels take; raises on
-    anything else."""
+def _check_types(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 *others: torch.Tensor) -> None:
+    """Devices, dtypes, head size and K/V shapes the kernels take."""
     D = q.shape[-1]
-    for t in (k_pages, v_pages) + others:
+    for t in (k, v) + others:
         if t.device != q.device:
             raise ValueError(f"operand on {t.device}, q on {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError(f"pool dtype {k_pages.dtype}/{v_pages.dtype} "
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"K/V dtype {k.dtype}/{v.dtype} "
                         f"differs from q dtype {q.dtype}")
     if D % 8 or D > 256:
         raise ValueError(f"head_dim must be a multiple of 8 and <= 256, got {D}")
-    if k_pages.shape != v_pages.shape or k_pages.shape[-1] != D:
-        raise ValueError(f"pool shapes {tuple(k_pages.shape)}, "
-                         f"{tuple(v_pages.shape)} do not match head_dim {D}")
+    if k.shape != v.shape or k.shape[-1] != D:
+        raise ValueError(f"K/V shapes {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} do not match head_dim {D}")
+
+
+def check_operands(q: torch.Tensor, k_pages: torch.Tensor,
+                   v_pages: torch.Tensor, *others: torch.Tensor) -> None:
+    """Devices, shapes and types the paged kernels take; raises on
+    anything else."""
+    _check_types(q, k_pages, v_pages, *others)
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("page pools must be contiguous")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("page pools must start on 16 bytes: the kernels "
                          "load rows 16 bytes at a time")
+
+
+def check_slot_operands(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, cache_len: torch.Tensor
+                        ) -> None:
+    """What the slot kernel takes: :func:`check_operands`' types, and
+    caches read in place through their lane and token strides, so each
+    ``(Hk, D)`` block must be contiguous, K and V must share strides,
+    and every row must start on 16 bytes; raises on anything else."""
+    _check_types(q, k_cache, v_cache, cache_len)
+    B, S, Hk, D = k_cache.shape
+    if q.shape[0] != B or cache_len.shape != (B,):
+        raise ValueError(f"q {tuple(q.shape)}, cache_len "
+                         f"{tuple(cache_len.shape)} and cache "
+                         f"{tuple(k_cache.shape)} differ in lanes")
+    if k_cache.stride() != v_cache.stride():
+        raise ValueError(f"K/V strides {k_cache.stride()} and "
+                         f"{v_cache.stride()} differ")
+    b_stride, s_stride, h_stride, d_stride = k_cache.stride()
+    if d_stride != 1 or (Hk > 1 and h_stride != D):
+        raise ValueError(f"each cache row (Hk, D) must be contiguous, "
+                         f"strides {k_cache.stride()}")
+    e = k_cache.element_size()
+    if (k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16
+            or (b_stride * e) % 16 or (s_stride * e) % 16):
+        raise ValueError("cache rows must start on 16 bytes: the kernel "
+                         "loads rows 16 bytes at a time")
 
 
 def batched_paged_decode_attention(
@@ -227,4 +279,48 @@ def paged_decode_attention(
     _build.check(err, "paged_decode_attention")
     global paged_decode_launches
     paged_decode_launches += 1
+    return out
+
+
+def slot_decode_attention(
+    q: torch.Tensor,            # [B, H, D]
+    k_cache: torch.Tensor,      # [B, S, Hk, D], rows read in place
+    v_cache: torch.Tensor,      # [B, S, Hk, D]
+    cache_len: torch.Tensor,    # [B] int valid entries per lane
+    *,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention of each lane's token over its cache entries ``s <
+    cache_len``: out [B, H, D] in q's dtype, float32 accumulation, zeros
+    where ``cache_len`` is 0. No window: a ring holds only the positions
+    inside a model's window. Reads no length on the host."""
+    B, H, D = q.shape
+    _, S, Hk, _ = k_cache.shape
+    if H % Hk:
+        raise ValueError(f"{H} query heads do not group over {Hk} kv heads")
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                        logit_softcap=logit_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    check_slot_operands(q, k_cache, v_cache, cache_len)
+    q = _build.aligned16(q.contiguous())
+    cache_len = cache_len.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    per, n_splits = slot_plan(B, Hk, S)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    partials, tickets = _launch_buffers(q, n_splits, stream)
+    b_stride, s_stride = k_cache.stride(0), k_cache.stride(1)
+    fn = _build.load("paged_decode", "slot_decode_launch")
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             cache_len.data_ptr(), out.data_ptr(), _ptr(partials),
+             _ptr(tickets), B, H, Hk, D, S, per, n_splits, b_stride,
+             s_stride, D ** -0.5,
+             0.0 if logit_softcap is None else float(logit_softcap),
+             _DTYPES[q.dtype], stream)
+    _build.check(err, "slot_decode_attention")
+    global slot_decode_launches
+    slot_decode_launches += 1
     return out

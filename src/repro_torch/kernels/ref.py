@@ -5,8 +5,9 @@ against, ported from the JAX package's ``kernels/ref.py``: dense GQA
 attention (``mha_naive``, ``flash_attention_chunked``), contiguous-cache
 decode, the paged forms, which gather each sequence's pages into a
 contiguous view and then run textbook masked softmax attention in
-float32 (``paged_decode_split_ref`` repeats the split-page decode
-kernel's own order: per-run partials merged in run order), and the
+float32 (``paged_decode_split_ref`` and ``slot_decode_split_ref``
+repeat the split decode kernel's own order: per-run partials merged in
+run order), and the
 Mamba-2 SSD scan (``ssd_naive``, ``ssd_chunked``) and its one-token
 decode step (``ssm_decode_step_ref``, which has no kernel: the JAX
 package runs its plain form on every backend). Rows whose mask is
@@ -213,6 +214,36 @@ def batched_paged_decode_attention_ref(
     return decode_attention_ref(q, k, v, lens + 1, logit_softcap=logit_softcap)
 
 
+def _merge_split_runs(qf: torch.Tensor, runs, logit_softcap: Optional[float]
+                      ) -> torch.Tensor:
+    """The split decode kernels' arithmetic on float32 queries ``qf``
+    ``[B, Hk, g, D]`` (scaled): each of ``runs``, a (k, v, mask) of
+    ``[B, T, Hk, D]`` float32 K/V and its ``[B, T]`` visible keys, gives
+    a partial (m, l, acc) (m = -inf, l = 0 where nothing is visible);
+    the partials merge in run order. A lane with no mass gives zeros.
+    Returns ``[B, Hk, g, D]`` float32."""
+    parts = []
+    for k, v, mask in runs:
+        s = torch.einsum("bhgd,bthd->bhgt", qf, k)
+        if logit_softcap is not None:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        s = s.masked_fill(~mask[:, None, None], float("-inf"))
+        m = s.amax(dim=-1)                                 # [B, Hk, g]
+        safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        e = torch.exp(s - safe[..., None])
+        parts.append((m, e.sum(dim=-1),
+                      torch.einsum("bhgt,bthd->bhgd", e, v)))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    safe = torch.where(torch.isfinite(m_all), m_all, torch.zeros_like(m_all))
+    mass = torch.zeros_like(m_all)
+    acc = torch.zeros_like(qf)
+    for m, l, a in parts:
+        w = torch.exp(m - safe)
+        mass = mass + l * w
+        acc = acc + a * w[..., None]
+    return acc / torch.where(mass == 0.0, torch.ones_like(mass), mass)[..., None]
+
+
 def paged_decode_split_ref(
     q: torch.Tensor,            # [B, H, D]
     k_pages: torch.Tensor,      # [n_pages, page_size, Hk, D]
@@ -244,36 +275,54 @@ def paged_decode_split_ref(
     lens = seq_lens.to(dev).long().clamp_min(0)
     steps = torch.clamp(-(-lens // page_size), max=steps_max)
     kv_len = torch.minimum(lens, steps * page_size)
-    parts = []
-    for p0 in range(0, steps_max, pages_per_split):
-        p1 = min(p0 + pages_per_split, steps_max)
-        table = page_table[:, p0:p1]
-        k = _gather_pages(k_pages, table).float()          # [B, T, Hk, D]
-        v = _gather_pages(v_pages, table).float()
-        pos = p0 * page_size + torch.arange(k.shape[1], device=dev)
-        mask = pos[None] < kv_len[:, None]                 # [B, T]
-        if k_new is not None and p0 == 0:
-            k = torch.cat([k, k_new.float()[:, None]], dim=1)
-            v = torch.cat([v, v_new.float()[:, None]], dim=1)
-            mask = torch.cat([mask, mask.new_ones(B, 1)], dim=1)
-        s = torch.einsum("bhgd,bthd->bhgt", qf, k)
-        if logit_softcap is not None:
-            s = logit_softcap * torch.tanh(s / logit_softcap)
-        s = s.masked_fill(~mask[:, None, None], float("-inf"))
-        m = s.amax(dim=-1)                                 # [B, Hk, g]
-        safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-        e = torch.exp(s - safe[..., None])
-        parts.append((m, e.sum(dim=-1),
-                      torch.einsum("bhgt,bthd->bhgd", e, v)))
-    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
-    safe = torch.where(torch.isfinite(m_all), m_all, torch.zeros_like(m_all))
-    mass = torch.zeros_like(m_all)
-    acc = torch.zeros_like(qf)
-    for m, l, a in parts:
-        w = torch.exp(m - safe)
-        mass = mass + l * w
-        acc = acc + a * w[..., None]
-    out = acc / torch.where(mass == 0.0, torch.ones_like(mass), mass)[..., None]
+
+    def runs():
+        for p0 in range(0, steps_max, pages_per_split):
+            p1 = min(p0 + pages_per_split, steps_max)
+            table = page_table[:, p0:p1]
+            k = _gather_pages(k_pages, table).float()      # [B, T, Hk, D]
+            v = _gather_pages(v_pages, table).float()
+            pos = p0 * page_size + torch.arange(k.shape[1], device=dev)
+            mask = pos[None] < kv_len[:, None]             # [B, T]
+            if k_new is not None and p0 == 0:
+                k = torch.cat([k, k_new.float()[:, None]], dim=1)
+                v = torch.cat([v, v_new.float()[:, None]], dim=1)
+                mask = torch.cat([mask, mask.new_ones(B, 1)], dim=1)
+            yield k, v, mask
+
+    out = _merge_split_runs(qf, runs(), logit_softcap)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def slot_decode_split_ref(
+    q: torch.Tensor,            # [B, H, D]
+    k_cache: torch.Tensor,      # [B, S, Hk, D]
+    v_cache: torch.Tensor,      # [B, S, Hk, D]
+    cache_len: torch.Tensor,    # [B] int
+    *,
+    tokens_per_split: int,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of the slot decode kernel's arithmetic, in float32:
+    lane ``b`` attends slots ``[0, min(cache_len, S))``, as
+    :func:`decode_attention_ref` masks them without a window; the ring
+    is cut into runs of ``tokens_per_split`` slots, each run gives a
+    partial and the partials merge in run order (the per-sequence paged
+    form with pages of one slot). A ``cache_len`` of 0 gives zeros."""
+    B, H, D = q.shape
+    S, Hk = k_cache.shape[1], k_cache.shape[2]
+    dev = q.device
+    qf = (q.float() * (D ** -0.5)).reshape(B, Hk, H // Hk, D)
+    hi = torch.clamp(cache_len.to(dev).long().clamp_min(0), max=S)
+
+    def runs():
+        for t0 in range(0, S, tokens_per_split):
+            t1 = min(t0 + tokens_per_split, S)
+            pos = torch.arange(t0, t1, device=dev)
+            yield (k_cache[:, t0:t1].float(), v_cache[:, t0:t1].float(),
+                   pos[None] < hi[:, None])
+
+    out = _merge_split_runs(qf, runs(), logit_softcap)
     return out.reshape(B, H, D).to(q.dtype)
 
 

@@ -20,8 +20,8 @@ Serving keeps, per decoder layer, a self-attention K/V cache
 ``k``/``v [L, B, max_len, Hk, hd]`` and the static cross-attention K/V
 ``cross_k``/``cross_v [L, B, enc_seq, Hk, hd]`` that prefill computes
 once from the encoder output. :func:`decode_step` writes the self K/V
-in place and attends the cross K/V through the plain
-``ops.decode_attention`` (the JAX package has no kernel for it either).
+in place and attends both caches through ``ops.decode_attention``: the
+slot decode kernel on the card (the JAX package's form is plain).
 """
 
 from __future__ import annotations
@@ -205,11 +205,13 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 tokens: torch.Tensor,          # [B] current token
                 pos: "int | torch.Tensor",     # [] or [B] absolute position
+                *, impl: str = "auto",
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decoder iteration for every slot: each layer writes its
     token's self K/V at ``pos % S`` (in place) and attends ``min(lens +
-    1, S)`` entries, then attends the ``enc_seq`` cross K/V (plain
-    torch). Returns (logits [B, V], the cache with new ``lens``)."""
+    1, S)`` entries, then attends the ``enc_seq`` cross K/V (both
+    through ``ops.decode_attention`` by ``impl``). Returns (logits
+    [B, V], the cache with new ``lens``)."""
     B = tokens.shape[0]
     x = nn.embed(cfg, params["embed"], tokens)                # [B, d]
     pe = nn.sinusoidal_at(pos, cfg.d_model, x.device)
@@ -222,11 +224,11 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         h = constrain(h, "batch", "model")
         h = h + nn.attention_decode(
             cfg, lp["self_attn"]["attn"], nn.apply_norm(cfg, lp["ln1"], h),
-            cache["k"][i], cache["v"][i], pos, new_lens)
+            cache["k"][i], cache["v"][i], pos, new_lens, impl=impl)
         h = h + nn.attention_decode(
             cfg, lp["cross_attn"]["attn"], nn.apply_norm(cfg, lp["lnx"], h),
             cache["cross_k"][i], cache["cross_v"][i], pos, enc_len,
-            cross=True)
+            cross=True, impl=impl)
         h = h + nn.mlp_block(cfg, lp["mlp"], nn.apply_norm(cfg, lp["ln2"], h))
     h = nn.apply_norm(cfg, params["final_norm"], h)
     return nn.unembed(cfg, _head(cfg, params), h), {**cache, "lens": new_lens}

@@ -15,8 +15,8 @@ and ``ssm``) and, for each application of the shared block, a ring of
 ``[n_apps, B, S, Hk, D]``). ``prefill`` runs the shared block through
 ``ops.attention`` (the flash kernel on CUDA tensors, once per
 application) and the Mamba layers through ``mamba2.prefill_layers``;
-``decode_step`` runs the plain ``layers.attention_decode`` against the
-ring at ``pos % S`` and ``mamba2.decode_layers``, writing every state in
+``decode_step`` runs ``layers.attention_decode`` (the slot decode
+kernel on CUDA tensors) against the ring at ``pos % S`` and ``mamba2.decode_layers``, writing every state in
 place (the JAX function returns a new cache). ``lens`` counts every
 token; the attention sees ``min(lens + 1, S)`` entries.
 """
@@ -181,10 +181,12 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 tokens: torch.Tensor,          # [B] current token
                 pos: "int | torch.Tensor",     # [] or [B] absolute position
+                *, impl: str = "auto",
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode iteration for every slot: each application of the
     shared block writes its token's K/V at ring slot ``pos % S`` and
-    attends ``min(lens + 1, S)`` entries (plain torch); the Mamba layers
+    attends ``min(lens + 1, S)`` entries (``ops.decode_attention`` by
+    ``impl``); the Mamba layers
     step their states. Every state is written in place. Returns (logits
     [B, V], the cache with ``lens + 1``)."""
     emb0 = nn.embed(cfg, params["embed"], tokens)        # [B, d]
@@ -198,7 +200,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         attn = nn.attention_decode(cfg, sp["attn"],
                                    nn.apply_norm(cfg, sp["ln1"], u),
                                    cache["attn_k"][i], cache["attn_v"][i],
-                                   pos, attn_lens)
+                                   pos, attn_lens, impl=impl)
         h = h + _shared_out(cfg, sp, u, attn)
         h = mamba2.decode_layers(cfg, layers[s:e], h, cache, start=s)
     h = nn.apply_norm(cfg, params["final_norm"], h)

@@ -323,6 +323,7 @@ def attention_decode(
     *,
     cross: bool = False,
     kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Cached single-token decode. Writes the new K/V into ring slot
     ``pos % S`` of the caches (in place; ``pos`` a scalar for a lockstep
@@ -331,7 +332,8 @@ def attention_decode(
     quantised on write and the cache dequantised to q's dtype for
     attention. With ``cross`` the caches are the static cross-attention
     K/V: only q is projected, nothing is written, and ``cache_len`` is
-    the encoder's length. Returns out [B, d]."""
+    the encoder's length. ``impl`` goes to ``ops.decode_attention``.
+    Returns out [B, d]."""
     B = x.shape[0]
     S = k_cache.shape[1]
     pos = torch.as_tensor(pos, device=x.device).long()
@@ -340,7 +342,7 @@ def attention_decode(
         if cfg.pos == "rope":
             q = apply_rope(q, pos.expand(B), cfg.rope_theta)
         out = ops.decode_attention(q, k_cache, v_cache, cache_len,
-                                   logit_softcap=cfg.logit_softcap)
+                                   logit_softcap=cfg.logit_softcap, impl=impl)
         return merge_heads(out, p["wo"])
     q, k_new, v_new = qkv_project(p, x)              # [B, H|Hk, hd]
     if cfg.pos == "rope":
@@ -365,7 +367,8 @@ def attention_decode(
     # a ring cache holds only positions inside the window, so no window
     # mask is applied here (the JAX layer passes window=None too)
     out = ops.decode_attention(q, k_attn, v_attn, cache_len,
-                               logit_softcap=cfg.logit_softcap, window=None)
+                               logit_softcap=cfg.logit_softcap, window=None,
+                               impl=impl)
     return merge_heads(out, p["wo"])
 
 

@@ -307,10 +307,13 @@ def decode_layers(cfg: ModelConfig, layers, h: torch.Tensor, cache: Dict,
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 tokens: torch.Tensor,          # [B] current token
                 pos: "int | torch.Tensor",     # unused: the state is O(1)
+                *, impl: str = "auto",
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode iteration for every slot: (logits [B, V], the cache
-    with its conv and SSM states written in place and ``lens + 1``)."""
-    del pos
+    with its conv and SSM states written in place and ``lens + 1``).
+    ``impl`` is taken for the other families' signature: the SSM state
+    update is plain on every device."""
+    del pos, impl
     h = nn.embed(cfg, params["embed"], tokens)           # [B, d]
     h = decode_layers(cfg, nn.unstack_layers(params["layers"]), h, cache)
     h = nn.apply_norm(cfg, params["final_norm"], h)

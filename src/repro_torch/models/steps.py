@@ -136,14 +136,16 @@ def make_serve_step(cfg: ModelConfig, *, impl: str = "auto",
                     temperature: float = 0.0) -> Callable:
     """``serve_step(params, cache, tokens, pos, gen) -> (next_tokens,
     cache)``: one new token per active sequence against the KV / SSM
-    cache, the unit of the ``decode_32k`` and ``long_500k`` cells. The
-    decode paths dispatch on their own (``impl`` is accepted for the
-    train and prefill steps' signature, as in JAX)."""
+    cache, the unit of the ``decode_32k`` and ``long_500k`` cells.
+    ``impl`` goes to the decode step's attention
+    (``ops.decode_attention``): a cache that ``cell_shardings`` splits on
+    S (kv heads that do not divide the model axis) has no kernel, so on
+    CUDA tensors its serve step takes ``impl='reference'``."""
     api = get_api(cfg)
-    del impl
 
     def serve_step(params, cache, tokens, pos, gen):
-        logits, cache = api.decode_step(cfg, params, cache, tokens, pos)
+        logits, cache = api.decode_step(cfg, params, cache, tokens, pos,
+                                        impl=impl)
         return sample_logits(logits, gen, temperature), cache
 
     return serve_step

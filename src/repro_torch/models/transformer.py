@@ -260,12 +260,13 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 tokens: torch.Tensor,          # [B] current token
                 pos: "int | torch.Tensor",     # [] or [B] absolute position
+                *, impl: str = "auto",
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode iteration for the whole batch against the contiguous
     cache: each slot writes its token's K/V at ring slot ``pos % S`` (in
-    place) and attends its ``min(lens + 1, S)`` valid entries. Returns
-    (logits [B, V], the cache with the same K/V tensors and new
-    ``lens``)."""
+    place) and attends its ``min(lens + 1, S)`` valid entries (the slot
+    decode kernel, or by ``impl`` the plain version). Returns (logits
+    [B, V], the cache with the same K/V tensors and new ``lens``)."""
     _check_family(cfg)
     S = cache["k"].shape[2]
     new_lens = torch.clamp(cache["lens"] + 1, max=S).to(torch.int32)
@@ -279,7 +280,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         attn_in = nn.apply_norm(cfg, lp["ln1"], h)
         h = h + nn.attention_decode(
             cfg, lp["attn"], attn_in, cache["k"][i], cache["v"][i], pos,
-            new_lens, kv_scales=scales)
+            new_lens, kv_scales=scales, impl=impl)
         h = h + _mlp_decode(cfg, lp, nn.apply_norm(cfg, lp["ln2"], h))
     h = nn.apply_norm(cfg, params["final_norm"], h)
     return nn.unembed(cfg, _head(cfg, params), h), {**cache, "lens": new_lens}

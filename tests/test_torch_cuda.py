@@ -20,6 +20,9 @@ outputs, so their rounding error scales with ``max |y|``: float32 atol
 """
 
 import os
+import sys
+from pathlib import Path
+from unittest import mock
 
 import pytest
 import torch
@@ -34,6 +37,9 @@ from repro_torch.models.registry import get_api
 from repro_torch.models.steps import make_train_step
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.workload.generator import GeneratorConfig, WorkloadGenerator
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import SLOT_SCENES, slot_scene  # noqa: E402
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
@@ -311,6 +317,55 @@ def test_decode_kernels_at_split_edges(cuda, B, H, Hk, D, P, pps, lens, fused,
     assert not any(t.any() for t in paged_attention._tickets.values())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scene", list(SLOT_SCENES))
+def test_slot_decode_kernel_matches_plain(cuda, scene, dtype):
+    """The slot decode kernel at chip_smoke's ``SLOT_SCENES`` against the
+    plain version and the split order's plain version at the same plan;
+    two calls bit-identical, lanes of length 0 zeros, the merge counters
+    left at 0."""
+    B, S, H, Hk, D, softcap, fixed, pad = SLOT_SCENES[scene]
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    per, n_splits = paged_attention.slot_plan(B, Hk, S)
+    if scene == "decode_32k":                  # a split's edge and beside it
+        fixed = fixed + (per, per + 1)
+    q, k, v, lens = slot_scene(gen, cuda, B, S, H, Hk, D, fixed, pad, dtype)
+    kw = dict(logit_softcap=softcap)
+    before = paged_attention.slot_decode_launches
+    got = ops.decode_attention(q, k, v, lens, impl="cuda", **kw)
+    again = ops.decode_attention(q, k, v, lens, impl="cuda", **kw)
+    want = ops.decode_attention(q, k, v, lens, impl="reference", **kw)
+    split = ref.slot_decode_split_ref(q, k, v, lens, tokens_per_split=per,
+                                      **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.slot_decode_launches == before + 2
+    # the cells' 256 lanes take one split; the other scenes split
+    assert (n_splits == 1) == (scene == "danube")
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(got.float(), split.float(), **TOL[dtype])
+    assert not got[lens == 0].any()
+    assert not any(t.any() for t in paged_attention._tickets.values())
+
+
+def test_slot_decode_refuses_a_window_on_cuda(cuda):
+    """The slot kernel takes no window: on CUDA tensors ``auto`` and
+    ``cuda`` raise and name ``impl='reference'``, which still masks it;
+    nothing falls to the plain version on its own."""
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    q, k, v, lens = slot_scene(gen, cuda, 8, 512, 32, 8, 80, (0, 1, 300, 512),
+                               0, torch.bfloat16)
+    before = paged_attention.slot_decode_launches
+    for impl in ("auto", "cuda"):
+        with pytest.raises(ValueError, match="impl='reference'"):
+            ops.decode_attention(q, k, v, lens, window=300, impl=impl)
+    got = ops.decode_attention(q, k, v, lens, window=300, impl="reference")
+    want = ref.decode_attention_ref(q, k, v, lens, window=300)
+    assert paged_attention.slot_decode_launches == before
+    assert torch.equal(got, want)
+
+
 def _ssd_inputs(gen, dev, B, L, H, G, P, N, dtype):
     x = torch.randn(B, L, H, P, generator=gen, device=dev) * 0.5
     a = -torch.randn(B, L, H, generator=gen, device=dev).abs() * 0.1
@@ -501,41 +556,72 @@ def test_engine_serves_each_family_on_cuda(cuda, arch, paged):
     kernel of the path launches exactly as often as the path says (paged:
     batched decode and chunked prefill once per layer and iteration or
     chunk, a vlm's single-shot prefill through flash attention instead;
-    slot-ring: flash attention once per attention layer and prefill,
-    none for Mamba-2; whisper's encoder, decoder and cross-attention
-    layers), and no other kernel."""
+    slot-ring: flash attention once per attention layer and prefill, the
+    slot decode once per attention layer and decode iteration, none for
+    Mamba-2; whisper's encoder, decoder and cross-attention layers), and
+    no other kernel. A second engine on the same requests, stepped in
+    lockstep with ``ops.decode_attention`` on ``impl='reference'``, emits
+    the same tokens at every step."""
     cfg = smoke_config(arch)
     params = get_api(cfg).init(cfg, torch.Generator(device=cuda).manual_seed(0),
                                device=cuda)
-    sched = DriftScheduler("fifo")
-    eng = ServingEngine(cfg, params, sched,
-                        EngineConfig(n_slots=3, max_len=96,
-                                     prompt_buckets=(16, 32), paged=paged,
-                                     page_size=8, chunk_prefill_tokens=16),
-                        device=cuda)
-    gen = WorkloadGenerator(GeneratorConfig(
-        total_requests=5, calibration_requests=5, max_tokens=12, seed=3))
-    for t, r in gen.plan(seed=3).calibration:
-        sched.submit(r, t)
+
+    def engine():
+        sched = DriftScheduler("fifo")
+        eng = ServingEngine(cfg, params, sched,
+                            EngineConfig(n_slots=3, max_len=96,
+                                         prompt_buckets=(16, 32), paged=paged,
+                                         page_size=8, chunk_prefill_tokens=16),
+                            device=cuda)
+        gen = WorkloadGenerator(GeneratorConfig(
+            total_requests=5, calibration_requests=5, max_tokens=12, seed=3))
+        for t, r in gen.plan(seed=3).calibration:
+            sched.submit(r, t)
+        return eng, sched
+
+    (eng, sched), (plain_eng, _) = engine(), engine()
+    decode_attention = ops.decode_attention
+
+    def plain(*args, impl="auto", **kw):
+        return decode_attention(*args, impl="reference", **kw)
+
     counters = [(paged_attention, "launches"), (chunked_prefill, "launches"),
                 (paged_attention, "paged_decode_launches"),
-                (flash_attention, "launches"), (ssd_scan, "launches")]
-    before = [getattr(m, a) for m, a in counters]
-    assert eng.run_until_drained(max_steps=2000).n_completed == 5
+                (flash_attention, "launches"), (ssd_scan, "launches"),
+                (paged_attention, "slot_decode_launches")]
+    got = [0] * len(counters)
+    now = 0.0
+    while sched.queue_depth() or eng.active_slots():
+        assert now < 2000, "the engine failed to drain"
+        before = [getattr(m, a) for m, a in counters]
+        eng.step(now)
+        got = [g + getattr(m, a) - b
+               for g, (m, a), b in zip(got, counters, before)]
+        with mock.patch.object(ops, "decode_attention", plain):
+            plain_eng.step(now)
+        assert [s.last_token for s in eng.slots] == \
+            [s.last_token for s in plain_eng.slots], f"step {now}"
+        now += 1.0
     torch.cuda.synchronize()
-    got = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
+    assert len(sched.completed) == 5
     if paged and cfg.family == "vlm":
         want = [cfg.n_layers * eng.n_decode_launches, 0, 0,
-                cfg.n_layers * 5, 0]
+                cfg.n_layers * 5, 0, 0]
     elif paged:
         want = [cfg.n_layers * eng.n_decode_launches,
-                cfg.n_layers * eng.n_prefill_launches, 0, 0, 0]
+                cfg.n_layers * eng.n_prefill_launches, 0, 0, 0, 0]
     else:
         per_prefill = {"dense": cfg.n_layers, "moe": cfg.n_layers,
                        "vlm": cfg.n_layers, "ssm": 0,
                        "hybrid": -(-cfg.n_layers // max(cfg.attn_every, 1)),
                        "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}
-        want = [0, 0, 0, per_prefill[cfg.family] * 5, 0]
+        per_decode = {"dense": cfg.n_layers, "moe": cfg.n_layers,
+                      "vlm": cfg.n_layers, "ssm": 0,
+                      "hybrid": per_prefill["hybrid"],
+                      "encdec": 2 * cfg.n_layers}
+        want = [0, 0, 0, per_prefill[cfg.family] * 5, 0,
+                per_decode[cfg.family] * eng.n_decode_launches]
+        assert want[-1] > 0 or cfg.family == "ssm"
     assert got == want
 
 
@@ -569,7 +655,7 @@ def test_moe_and_vlm_paths_kernel_against_plain(cuda, arch):
         lp, cache = transformer.prefill(cfg, params, tokens, patches=patches,
                                         max_len=64, impl=impl)
         ld, _ = transformer.decode_step(cfg, params, cache, step,
-                                        cache["lens"])
+                                        cache["lens"], impl=impl)
         pool = {"k": k0.clone(), "v": v0.clone()}
         lc = transformer.prefill_chunk_paged(cfg, params, pool, tokens[:, :16],
                                              table, q_off, impl=impl)
@@ -577,8 +663,9 @@ def test_moe_and_vlm_paths_kernel_against_plain(cuda, arch):
                                            lens, max_pages=8, impl=impl)
         return lp, ld, lc, lg
 
-    before = flash_attention.launches
+    before = flash_attention.launches, paged_attention.slot_decode_launches
     got = run("auto")
-    assert flash_attention.launches - before == cfg.n_layers
+    assert flash_attention.launches - before[0] == cfg.n_layers
+    assert paged_attention.slot_decode_launches - before[1] == cfg.n_layers
     for g, w in zip(got, run("reference")):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)

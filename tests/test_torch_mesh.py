@@ -17,6 +17,14 @@ size, shared by the module). Cases, smoke configs in float32:
   ``atol=rtol=1e-5``;
 * ``serve``: one decode step after a prefill, logits' argmax equal and
   the new cache within ``atol=rtol=1e-5``;
+* ``seq_split``: ``serve`` on a model axis of 2 that the smollm-135m
+  smoke config's one kv head does not divide, so ``cache_shardings``
+  splits the cache on S, stepped with ``impl='reference'`` as a CUDA
+  caller must; then ``ops.decode_attention`` on that layer cache: the
+  plain DTensor ops equal the plain version on the gathered tensors,
+  ``impl='cuda'`` raises on CPU tensors, and where the dispatch answers
+  as for CUDA tensors, ``auto`` raises and names ``impl='reference'``
+  (the slot kernel cannot reduce across ranks);
 * ``psum``: ``compressed_psum`` at world 2 against the numpy formula
   (each rank's int8 payload times its scale, summed, divided by 2)
   within ``1e-6``.
@@ -62,6 +70,8 @@ WORLD_CASES = {
              mesh=(1, 2)),
         dict(name="serve_data2", kind="serve", arch="smollm-135m",
              mesh=(2, 1)),
+        dict(name="serve_seq_split_model2", kind="seq_split",
+             arch="smollm-135m", mesh=(1, 2), impl="reference"),
         dict(name="psum_world2", kind="psum")],
     4: [dict(name="train_2x2_zero1", kind="train", arch="smollm-135m",
              mesh=(2, 2)),
@@ -163,7 +173,7 @@ def _serve_case(case, mesh):
     batch = {"tokens": _tokens(cfg, 4, 24, 8)}
     tok, cache = _prefill(cfg, _params(cfg), batch, 32)
     pos = torch.tensor(24, dtype=torch.int32)
-    serve = make_serve_step(cfg)
+    serve = make_serve_step(cfg, impl=case.get("impl", "auto"))
     ref_tok, ref_cache = serve(_params(cfg), {k: v.clone() for k, v in
                                               cache.items()}, tok, pos, None)
     params, dcache, dtok, _ = sharded.place_decode(cfg, mesh, _params(cfg),
@@ -177,6 +187,50 @@ def _serve_case(case, mesh):
                                             **CACHE_TOL)
                              for a, b in zip(tree_leaves(got_cache),
                                              tree_leaves(ref_cache))))
+
+
+def _seq_split_case(case, mesh):
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import cell_shardings as cs
+    from repro_torch.launch import sharded
+    out = _serve_case(case, mesh)
+    cfg = _cfg(case["arch"])
+    B, S, H, Hk, D = 4, 32, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    spec = cs.cache_shardings(cfg, mesh, {"k": torch.empty(1, B, S, Hk, D)})
+    out["kv_spec"] = [str(p) for p in spec["k"].spec]
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(*shape, generator=gen) for shape in
+               ((B, H, D), (B, S, Hk, D), (B, S, Hk, D)))
+    lens = torch.tensor([0, 1, 17, S], dtype=torch.int32)
+    rep = [Replicate(), Replicate()]
+    args = (distribute_tensor(q, mesh, rep),
+            *(distribute_tensor(t, mesh, [Replicate(), Shard(1)])
+              for t in (k, v)),
+            distribute_tensor(lens, mesh, rep))
+    want = ref.decode_attention_ref(q, k, v, lens)
+    raised = {}
+    with sharded.on_mesh(mesh):
+        out["plain_err"] = max(
+            _max_err(ops.decode_attention(*args, impl=impl).full_tensor(),
+                     want) for impl in ("auto", "reference"))
+        try:
+            ops.decode_attention(*args, impl="cuda")
+        except ValueError as e:
+            raised["cuda_on_cpu"] = str(e)
+        with mock.patch.object(ops, "_use_kernel",
+                               lambda impl, x: impl in ("auto", "cuda")):
+            for impl in ("auto", "cuda"):
+                try:
+                    ops.decode_attention(*args, impl=impl)
+                except ValueError as e:
+                    raised[f"{impl}_as_on_cuda"] = str(e)
+            got = ops.decode_attention(*args, impl="reference").full_tensor()
+            out["reference_as_on_cuda_err"] = _max_err(got, want)
+    out["raised"] = raised
+    return out
 
 
 def _psum_case(case, mesh):
@@ -246,7 +300,8 @@ def _worker(rank, world, store_path, out_path, cases):
             mesh = make_mesh(case.get("mesh", (world, 1)), ("data", "model"),
                              device_type="cpu")
             fn = {"train": _train_case, "prefill": _prefill_case,
-                  "serve": _serve_case, "psum": _psum_case,
+                  "serve": _serve_case, "seq_split": _seq_split_case,
+                  "psum": _psum_case,
                   "psum50": _psum50_case,
                   "bridge": _bridge_case}[case["kind"]]
             out[case["name"]] = dict(fn(case, mesh),
@@ -300,10 +355,24 @@ def test_train_mode_policy_is_fsdp(results):
     assert results["train_2x2_zero1"]["policy"].startswith("fsdp")
 
 
-@pytest.mark.parametrize("name", ["prefill_model2", "serve_data2"])
+@pytest.mark.parametrize("name", ["prefill_model2", "serve_data2",
+                                  "serve_seq_split_model2"])
 def test_sharded_serving_steps_match_unsharded(results, name):
     r = results[name]
     assert r["tokens_equal"] and r["cache_ok"], r
+
+
+def test_a_cache_split_on_s_takes_the_plain_ops_only_when_asked(results):
+    """The slot kernel cannot reduce the softmax across ranks, so a
+    cache split on S never reaches it, and no CUDA tensor reaches the
+    plain version unless the caller passes ``impl='reference'``."""
+    r = results["serve_seq_split_model2"]
+    assert r["kv_spec"][2:4] == ["model", "None"], r          # S on model
+    assert r["plain_err"] <= CACHE_TOL["atol"], r
+    assert r["reference_as_on_cuda_err"] <= CACHE_TOL["atol"], r
+    assert "CUDA" in r["raised"]["cuda_on_cpu"], r
+    for impl in ("auto", "cuda"):
+        assert "impl='reference'" in r["raised"][f"{impl}_as_on_cuda"], r
 
 
 def test_compressed_psum_matches_jax_over_50_steps(results):
